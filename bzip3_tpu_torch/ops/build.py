@@ -1,0 +1,152 @@
+"""Build and load the port's native libraries at first use.
+
+Two shared libraries, each with a plain C interface loaded by ctypes:
+
+- ``libbz3_host.so``: the host pre/post passes (CRC32-C, RLE, LZP) from
+  ``csrc/host_stages.cpp``, compiled with ``g++``.  Host code on every
+  machine.
+- ``libbz3_kernels.so``: the hand-written CUDA kernels from
+  ``csrc/*.cu``, compiled with ``nvcc`` for ``sm_90a`` (Hopper).  Each
+  ``.cu`` compiles to its own object in parallel, then one link.
+
+Both go to ``_build/`` at the root of the checkout (listed in
+``.gitignore``) and are rebuilt when a source is newer than the
+library.  A build or load failure raises: nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "_build")
+KERNEL_DIR = os.path.join(BUILD_ROOT, "torch_kernels")
+HOST_DIR = os.path.join(BUILD_ROOT, "torch_host")
+
+NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+class BuildError(RuntimeError):
+    """A native library failed to compile or load."""
+
+
+def _stale(target: str, sources: list[str]) -> bool:
+    if not os.path.exists(target):
+        return True
+    t = os.path.getmtime(target)
+    return any(os.path.getmtime(s) > t for s in sources)
+
+
+def _run(cmds: list[list[str]], log_path: str) -> None:
+    """Run compile commands in parallel; raise with their output on failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    with open(log_path, "a") as f:
+        for c, o in zip(cmds, outs):
+            f.write(" ".join(c) + "\n" + o + "\n")
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise BuildError(f"{' '.join(c)} failed ({p.returncode}):\n{o}")
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc")
+    if cand is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(cand):
+        raise BuildError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    return cand
+
+
+def _build_kernels(so: str, sources: list[str]) -> None:
+    os.makedirs(KERNEL_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f".{os.getpid()}.tmp"
+    log = os.path.join(KERNEL_DIR, "build.log")
+    open(log, "w").close()
+    # nvcc picks its action by suffix, so the objects end in ".o"
+    objs = [
+        os.path.join(KERNEL_DIR, os.path.basename(s)[:-3] + tag + ".o") for s in sources
+    ]
+    _run(
+        [
+            [nvcc, *NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", s, "-o", o]
+            for s, o in zip(sources, objs)
+        ],
+        log,
+    )
+    _run([[nvcc, *NVCC_ARCH, "-shared", *objs, "-o", so + tag]], log)
+    for o in objs:
+        os.remove(o)
+    os.replace(so + tag, so)
+
+
+def _build_host(so: str, sources: list[str]) -> None:
+    os.makedirs(HOST_DIR, exist_ok=True)
+    tag = f".{os.getpid()}.tmp"
+    cxx = os.environ.get("CXX", "g++")
+    _run(
+        [[cxx, "-O3", "-march=native", "-fPIC", "-shared", *sources, "-o", so + tag]],
+        os.path.join(HOST_DIR, "build.log"),
+    )
+    os.replace(so + tag, so)
+
+
+def _load(name: str, so: str, sources: list[str], builder) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        if not sources:
+            raise BuildError(f"no sources for {name} under {CSRC}")
+        if _stale(so, sources):
+            builder(so, sources)
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError as e:
+            raise BuildError(f"cannot load {so}: {e}") from e
+        _libs[name] = lib
+        return lib
+
+
+def load_host() -> ctypes.CDLL:
+    """The host stage library (g++), built on first use."""
+    return _load(
+        "host",
+        os.path.join(HOST_DIR, "libbz3_host.so"),
+        [os.path.join(CSRC, "host_stages.cpp")],
+        _build_host,
+    )
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The CUDA kernel library (nvcc, sm_90a), built on first use."""
+    return _load(
+        "kernels",
+        os.path.join(KERNEL_DIR, "libbz3_kernels.so"),
+        sorted(glob.glob(os.path.join(CSRC, "*.cu"))),
+        _build_kernels,
+    )
+
+
+def kernel_build_log() -> str:
+    """Compiler output of the last kernel build (``-Xptxas -v`` lines)."""
+    path = os.path.join(KERNEL_DIR, "build.log")
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()

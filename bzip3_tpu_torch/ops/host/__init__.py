@@ -1,0 +1,75 @@
+"""Host pre/post passes of the block pipeline: CRC32-C, RLE and LZP.
+
+Byte-serial C++ (``csrc/host_stages.cpp``) behind ctypes, on the host
+on every machine.  Semantics are the JAX package's oracles
+(``ops/ref/crc32.py``, ``rle.py``, ``lzp.py``; reference
+src/libbz3.c:37-329).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+from ..build import load_host
+
+_c = ctypes.c_void_p
+_i = ctypes.c_int32
+_ready = False
+
+LZP_LUT_BYTES = 4 << 18  # 2^18 s32 positions
+
+
+def _lib() -> ctypes.CDLL:
+    global _ready
+    lib = load_host()
+    if not _ready:
+        lib.bz3h_crc32.restype = ctypes.c_uint32
+        lib.bz3h_crc32.argtypes = [ctypes.c_char_p, _i]
+        lib.bz3h_lzp_encode.restype = _i
+        lib.bz3h_lzp_encode.argtypes = [ctypes.c_char_p, _i, _c, _c]
+        lib.bz3h_lzp_decode.restype = _i
+        lib.bz3h_lzp_decode.argtypes = [ctypes.c_char_p, _i, _c, _i, _c]
+        lib.bz3h_rle_encode.restype = _i
+        lib.bz3h_rle_encode.argtypes = [ctypes.c_char_p, _i, _c, _i]
+        lib.bz3h_rle_decode.restype = _i
+        lib.bz3h_rle_decode.argtypes = [ctypes.c_char_p, _i, _c, _i]
+        _ready = True
+    return lib
+
+
+def crc32(data: bytes) -> int:
+    """CRC32-C with init 1 and no final xor (src/libbz3.c:37-72)."""
+    return _lib().bz3h_crc32(data, len(data))
+
+
+def rle_encode(data: bytes) -> bytes:
+    """mRLE; the result is longer than the input when the stage expands."""
+    # output is bounded by 32 + 2n (worst case: every byte a gated single)
+    out = ctypes.create_string_buffer(2 * len(data) + 64)
+    r = _lib().bz3h_rle_encode(data, len(data), out, len(out))
+    if r < 0:
+        raise RuntimeError("rle_encode overran its 32 + 2n output bound")
+    return out.raw[:r]
+
+
+def rle_decode(data: bytes, out_len: int) -> bytes | None:
+    """Inverse mRLE to exactly ``out_len`` bytes; None on a bad stream."""
+    out = ctypes.create_string_buffer(max(64, out_len))
+    r = _lib().bz3h_rle_decode(data, len(data), out, out_len)
+    return None if r < 0 else out.raw[:r]
+
+
+def lzp_encode(data: bytes) -> bytes | None:
+    """LZP; None when the stage does not apply or would not shrink."""
+    out = ctypes.create_string_buffer(max(64, len(data)))
+    lut = ctypes.create_string_buffer(LZP_LUT_BYTES)
+    r = _lib().bz3h_lzp_encode(data, len(data), out, lut)
+    return None if r < 0 else out.raw[:r]
+
+
+def lzp_decode(data: bytes, max_out: int) -> bytes | None:
+    """Inverse LZP bounded by ``max_out``; None on a malformed stream."""
+    out = ctypes.create_string_buffer(max(64, max_out))
+    lut = ctypes.create_string_buffer(LZP_LUT_BYTES)
+    r = _lib().bz3h_lzp_decode(data, len(data), out, max_out, lut)
+    return None if r < 0 else out.raw[:r]

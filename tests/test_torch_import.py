@@ -1,0 +1,46 @@
+"""The PyTorch port imports neither JAX nor the JAX package.
+
+``conftest.py`` imports jax into the test process, so the check runs in
+a fresh interpreter.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import bzip3_tpu_torch
+names = ["bzip3_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(bzip3_tpu_torch.__path__, "bzip3_tpu_torch.")
+    if not m.name.endswith(".__main__")
+]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "bzip3_tpu")
+)
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    r = subprocess.run(
+        [sys.executable, "-c", _PROBE],
+        cwd=ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout)
+    for name in ("pipeline", "cli", "ops.device.cm_cuda", "ops.host", "container.stream"):
+        assert f"bzip3_tpu_torch.{name}" in got["imported"]
+    assert got["bad"] == [], f"port pulled in {got['bad']}"

@@ -1,0 +1,116 @@
+"""The port's block pipeline end to end on the CPU, against the JAX
+package's ``DevicePipeline`` on the blocks of ``test_pipeline.py``.
+
+Both produce BZ3v1 block bytes; they must be identical, and each must
+decode the other's.  The port's entry points run on the card by
+default, so without one they must raise rather than use the CPU.
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from bzip3_tpu.pipeline import DevicePipeline as JaxPipeline
+from bzip3_tpu_torch import compress, compress_file, decompress, decompress_file
+from bzip3_tpu_torch.engines import DeviceEngine
+from bzip3_tpu_torch.errors import Bz3Error
+
+BS = 1024
+RNG = np.random.default_rng(7)
+
+
+@pytest.fixture(scope="module")
+def blocks(text_data):
+    return [
+        text_data[:BS],
+        bytes(RNG.integers(0, 256, BS, dtype=np.uint8)),
+        b"ab" * (BS // 2),
+        b"x" * 40,  # literal path (< 64 bytes)
+        text_data[BS : 2 * BS],
+        b"\x00" * BS,
+        bytes(RNG.integers(0, 16, 700, dtype=np.uint8)),
+        b"",
+    ]
+
+
+@pytest.fixture(scope="module")
+def engine():
+    return DeviceEngine(device="cpu")
+
+
+@pytest.fixture(scope="module")
+def port_blocks(engine, blocks):
+    return engine.encode_blocks(blocks, BS)
+
+
+@pytest.fixture(scope="module")
+def jax_blocks(blocks):
+    return JaxPipeline(BS).encode_blocks(blocks)
+
+
+def test_port_encodes_like_jax(port_blocks, jax_blocks, engine):
+    assert port_blocks == jax_blocks
+    assert engine.reencoded_rows == 0
+
+
+def test_port_decodes_jax_blocks(engine, jax_blocks, blocks):
+    pairs = [(e, len(b)) for e, b in zip(jax_blocks, blocks)]
+    assert engine.decode_blocks(pairs, BS) == blocks
+
+
+def test_jax_decodes_port_blocks(port_blocks, blocks):
+    pairs = [(e, len(b)) for e, b in zip(port_blocks, blocks)]
+    assert JaxPipeline(BS).decode_blocks(pairs) == blocks
+
+
+def test_corrupted_crc_raises(engine, port_blocks, blocks):
+    for i in (2, 3):  # a coded block and a literal block
+        bad = bytearray(port_blocks[i])
+        bad[0] ^= 0x01  # the stored CRC32
+        with pytest.raises(Bz3Error):
+            engine.decode_blocks([(bytes(bad), len(blocks[i]))], BS)
+
+
+def test_overflow_row_is_reencoded_exactly(blocks, port_blocks, monkeypatch):
+    """A CM payload past its buffer is encoded again at its true length,
+    counted in ``reencoded_rows``, and the block bytes do not change."""
+    from bzip3_tpu_torch.ops.device import cm_cuda
+
+    real = cm_cuda.cm_encode
+
+    def capped(data, lengths, out_width=None):
+        return real(data, lengths, 64 if out_width is None else out_width)
+
+    monkeypatch.setattr(cm_cuda, "cm_encode", capped)
+    eng = DeviceEngine(device="cpu")
+    assert eng.encode_blocks(blocks[:1], BS) == port_blocks[:1]
+    assert eng.reencoded_rows == 1
+
+
+def test_frame_and_stream_round_trip(text_data):
+    # two blocks at the smallest block size; LZP shrinks them to some
+    # two hundred bytes each, which keeps the plain CM quick
+    data = (text_data[:120] * 600)[:70000]
+    bs = 65 * 1024
+    frame = compress(data, bs, device="cpu")
+    assert int.from_bytes(frame[9:13], "little") == 2
+    assert decompress(frame, device="cpu") == data
+
+    buf = io.BytesIO()
+    compress_file(io.BytesIO(data), buf, bs, batch_size=2, device="cpu")
+    out = io.BytesIO()
+    decompress_file(io.BytesIO(buf.getvalue()), out, batch_size=2, device="cpu")
+    assert out.getvalue() == data
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceEngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compress(b"x" * 100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decompress_file(io.BytesIO(b"BZ3v1\x00\x00\x01\x00"), io.BytesIO())
