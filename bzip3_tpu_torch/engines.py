@@ -7,7 +7,9 @@ The engine interface shared by the frame, stream and CLI layers:
     decode_blocks(pairs: list[(block_bytes, orig_size)], block_size) -> list[bytes]
 
 ``DeviceEngine`` runs the block pipeline on ``device``: ``"cuda"`` by
-default, ``"cpu"`` only when the caller asks for it.
+default, ``"cpu"`` only when the caller asks for it.  ``device_prepass``,
+``host_crc`` and ``device_crc_verify`` pass through to the pipelines
+(``pipeline.py``); None reads the JAX package's variables.
 """
 
 from __future__ import annotations
@@ -21,16 +23,28 @@ from .utils.profiling import StageTimer
 class DeviceEngine:
     name = "device"
 
-    def __init__(self, device="cuda", profile: bool = False):
+    def __init__(
+        self,
+        device="cuda",
+        profile: bool = False,
+        device_prepass: bool | None = None,
+        host_crc: bool | None = None,
+        device_crc_verify: bool | None = None,
+    ):
         self.device = resolve_device(device)
         sync = torch.cuda.synchronize if self.device.type == "cuda" else None
         self.timer = StageTimer(enabled=profile, sync=sync)
+        self._switches = {
+            "device_prepass": device_prepass,
+            "host_crc": host_crc,
+            "device_crc_verify": device_crc_verify,
+        }
         self._pipes: dict[int, DevicePipeline] = {}
 
     def _pipe(self, block_size: int) -> DevicePipeline:
         if block_size not in self._pipes:
             self._pipes[block_size] = DevicePipeline(
-                block_size, self.device, timer=self.timer
+                block_size, self.device, timer=self.timer, **self._switches
             )
         return self._pipes[block_size]
 

@@ -1,2 +1,30 @@
-"""Device stages: BWT (tensor code) and the CM coder (plain PyTorch in
-``cm``, hand-written CUDA kernels behind ``cm_cuda``)."""
+"""Device stages of the port, batched over [K, N] rows of blocks.
+
+- ``crc32_batch``: CRC-32C, lane states from the CUDA kernel K4
+  (``crc32_cuda``) combined as tensor code (``crc32``);
+- ``rle_encode_batch`` / ``rle_decode_batch``: mRLE as tensor code (``rle``);
+- ``lzp_encode`` / ``lzp_decode``: LZP, CUDA kernels K5/K6 (``lzp_cuda``);
+- ``bwt_forward_batch`` / ``bwt_inverse_batch``: BWT as tensor code (``bwt``);
+- ``cm_encode`` / ``cm_decode``: the CM coder, CUDA kernels K1/K2 (``cm_cuda``).
+
+Each kernel wrapper takes its plain PyTorch version (``crc32``, ``lzp``,
+``cm``) for tensors on the CPU.
+"""
+
+from .bwt import bwt_forward_batch, bwt_inverse_batch
+from .cm_cuda import cm_decode, cm_encode
+from .crc32_cuda import crc32_batch
+from .lzp_cuda import lzp_decode, lzp_encode
+from .rle import rle_decode_batch, rle_encode_batch
+
+__all__ = [
+    "bwt_forward_batch",
+    "bwt_inverse_batch",
+    "cm_decode",
+    "cm_encode",
+    "crc32_batch",
+    "lzp_decode",
+    "lzp_encode",
+    "rle_decode_batch",
+    "rle_encode_batch",
+]

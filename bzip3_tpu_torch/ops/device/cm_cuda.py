@@ -13,74 +13,18 @@ Outputs past a row's length are left unwritten (``torch.empty``).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..build import load_kernels
 from . import cm
+from .launch import I32, I64, P, check, entry, raise_on, route, rows16
 
 # Kernel launches since the last reset, by kernel.
 LAUNCHES = {"cm_encode": 0, "cm_decode": 0}
-
-_P = ctypes.c_void_p
-_I32 = ctypes.c_int32
-_I64 = ctypes.c_int64
-_ready = False
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    global _ready
-    lib = load_kernels()
-    if not _ready:
-        lib.bz3t_cm_encode.restype = ctypes.c_int
-        lib.bz3t_cm_encode.argtypes = [_P, _I64, _I64, _P, _P, _I64, _I32, _P, _I32, _P]
-        lib.bz3t_cm_decode.restype = ctypes.c_int
-        lib.bz3t_cm_decode.argtypes = [_P, _I64, _I64, _P, _P, _P, _I64, _I32, _P]
-        lib.bz3t_error_string.restype = ctypes.c_char_p
-        lib.bz3t_error_string.argtypes = [ctypes.c_int]
-        _ready = True
-    return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    if t.dtype != dtype or t.dim() != ndim:
-        raise TypeError(f"{name}: want {ndim}-d {dtype}, got {t.dim()}-d {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _route(*ts: torch.Tensor) -> str:
-    """'cpu' or 'cuda' for tensors all on one device; raise otherwise."""
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
-    kind = devs.pop().type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"no CM kernel for device type {kind!r}")
-    return kind
-
-
-def _rows16(x: torch.Tensor) -> torch.Tensor:
-    """x [K, W] uint8 with W a multiple of 16 and 16-byte aligned rows, as
-    the kernels' 16-byte reader needs: x itself, or a zero-padded copy."""
-    w = x.shape[1]
-    if w % 16 == 0 and x.data_ptr() % 16 == 0:
-        return x
-    out = torch.zeros((x.shape[0], -(-max(w, 1) // 16) * 16), dtype=x.dtype, device=x.device)
-    out[:, :w] = x
-    return out
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _lib().bz3t_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {rc})")
 
 
 def cm_encode(data: torch.Tensor, lengths: torch.Tensor, out_width: int | None = None):
@@ -91,26 +35,26 @@ def cm_encode(data: torch.Tensor, lengths: torch.Tensor, out_width: int | None =
     payload exceeds W reports its true length; its bytes past W are
     not written.
     """
-    _check(data, "data", torch.uint8, 2)
-    _check(lengths, "lengths", torch.int32, 1)
+    check(data, "data", torch.uint8, 2)
+    check(lengths, "lengths", torch.int32, 1)
     k, n = data.shape
     if lengths.shape[0] != k:
         raise ValueError(f"lengths has {lengths.shape[0]} rows, data {k}")
-    if _route(data, lengths) == "cpu":
+    if route(data, lengths) == "cpu":
         return cm.cm_encode_batch(data, lengths, out_width)
     w = out_width if out_width is not None else n + n // 8 + 64
     out = torch.empty((k, w), dtype=torch.uint8, device=data.device)
     out_lens = torch.empty((k,), dtype=torch.int32, device=data.device)
     if k == 0:
         return out, out_lens
-    src = _rows16(data)
+    src = rows16(data)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().bz3t_cm_encode(
+        rc = entry("bz3t_cm_encode", [P, I64, I64, P, P, I64, I32, P, I32, P])(
             src.data_ptr(), src.shape[1], n, lengths.data_ptr(), out.data_ptr(), w, w,
             out_lens.data_ptr(), k, stream,
         )
-    _raise_on(rc, "cm_encode")
+    raise_on(rc, "cm_encode")
     LAUNCHES["cm_encode"] += 1
     return out, out_lens
 
@@ -123,24 +67,24 @@ def cm_decode(
     Input past in_lens[k] reads as exhausted (``(code << 8) - 1``).
     Returns [K, out_width] uint8; bytes past out_lens[k] are not written.
     """
-    _check(payload, "payload", torch.uint8, 2)
-    _check(in_lens, "in_lens", torch.int32, 1)
-    _check(out_lens, "out_lens", torch.int32, 1)
+    check(payload, "payload", torch.uint8, 2)
+    check(in_lens, "in_lens", torch.int32, 1)
+    check(out_lens, "out_lens", torch.int32, 1)
     k = payload.shape[0]
     if in_lens.shape[0] != k or out_lens.shape[0] != k:
         raise ValueError("in_lens/out_lens must have one entry per payload row")
-    if _route(payload, in_lens, out_lens) == "cpu":
+    if route(payload, in_lens, out_lens) == "cpu":
         return cm.cm_decode_batch(payload, in_lens, out_lens, out_width)
     out = torch.empty((k, out_width), dtype=torch.uint8, device=payload.device)
     if k == 0:
         return out
-    src = _rows16(payload)
+    src = rows16(payload)
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().bz3t_cm_decode(
+        rc = entry("bz3t_cm_decode", [P, I64, I64, P, P, P, I64, I32, P])(
             src.data_ptr(), src.shape[1], payload.shape[1], in_lens.data_ptr(),
             out_lens.data_ptr(), out.data_ptr(), out_width, k, stream,
         )
-    _raise_on(rc, "cm_decode")
+    raise_on(rc, "cm_decode")
     LAUNCHES["cm_decode"] += 1
     return out

@@ -20,7 +20,18 @@ JSON line:
              counts, stage times, throughput and peak device memory;
 6. main_shapes - K1 and K2 on that path's own rows (post-prepass,
              post-BWT, [8, ~16 Mi]): timed, K2(K1(u)) == u, and each
-             against its plain version on every row's first 2 KiB.
+             against its plain version on every row's first 2 KiB;
+7. parity_prepass - K4 (CRC lane scan), K5 (LZP encode) and K6 (LZP
+             decode) against their plain versions on CPU copies of the
+             same rows of <= 4 KiB, byte for byte, K4's CRCs against the
+             host C++, and each kernel's step latency on one row;
+8. main_prepass - the device prepass chain: 8 blocks x 16 MiB (text,
+             log lines where LZP fires, a sparse block where RLE fires)
+             through ``compress_file`` / ``decompress_file`` with
+             ``device_prepass=True``; the stream must equal the default
+             path's, with LZP and RLE each kept on some block;
+9. prepass_shapes - K4, K5 and K6 on that phase's own [8, 16 Mi] rows,
+             timed, each checked in full against the host C++.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -52,6 +63,13 @@ PEAK_OPS_PER_S = 67e12
 # range split: 64-bit product and shift; branch; renorm test; four
 # counter updates; context update), counted from csrc/cm_kernels.cu.
 OPS_PER_BIT = 40
+# Operations of one CRC lane step (load, xor, mask, table load, shift,
+# xor) and of one LZP byte step (hash: 3 shifts/xors and a mask; table
+# load and store; tests of the slot and the token; byte load and
+# guarded store; context shift and or; loop tests), counted from
+# csrc/crc32_kernels.cu and csrc/lzp_kernels.cu.
+OPS_PER_CRC_BYTE = 6
+OPS_PER_LZP_STEP = 18
 
 
 def _require(cond, what) -> None:
@@ -139,6 +157,22 @@ def _bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _wrappers():
+    from bzip3_tpu_torch.ops.device import cm_cuda, crc32_cuda, lzp_cuda
+
+    return cm_cuda, crc32_cuda, lzp_cuda
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for w in _wrappers():
+        w.reset_launches()
+
+
+def launch_counts() -> dict:
+    return {k: v for w in _wrappers() for k, v in w.LAUNCHES.items()}
 
 
 def phase_device(card: str) -> None:
@@ -290,12 +324,11 @@ def phase_main(card: str, data: bytes, bs: int, blocks: int) -> dict:
     import torch
     from bzip3_tpu_torch import compress_file, decompress_file
     from bzip3_tpu_torch.engines import DeviceEngine
-    from bzip3_tpu_torch.ops.device import cm_cuda
 
     eng = DeviceEngine("cuda", profile=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cm_cuda.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     comp = io.BytesIO()
     compress_file(io.BytesIO(data), comp, bs, engine=eng, batch_size=blocks)
@@ -306,7 +339,7 @@ def phase_main(card: str, data: bytes, bs: int, blocks: int) -> dict:
     decompress_file(io.BytesIO(comp.getvalue()), back, engine=eng, batch_size=blocks)
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
-    launches = dict(cm_cuda.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     _require(back.getvalue() == data, "main path round trip differs")
@@ -398,10 +431,298 @@ def phase_main_shapes(card: str, data: bytes, bs: int, blocks: int,
     return out
 
 
-def kernels_line(parity: dict, main: dict, shapes: dict) -> dict:
-    """The kernels of the main path: launches from the main phase,
-    times from the main-shape phase, plain times from the parity phase
-    (the plain coder takes ~0.2 ms a bit step: hours at 16 MiB)."""
+def _lzp_cases() -> list[bytes]:
+    """The kinds of row of tests/test_lzp_pallas.py, each <= 4 KiB: the
+    encoder's heur rejection, word + 0..3 extension, base-254 lengths,
+    0xF2 escapes with and without a live prediction, out_cap."""
+    rng = np.random.default_rng(42)
+    text = (b"the quick brown fox jumps over the lazy dog. " * 40)[:1600]
+    return [
+        text,
+        text[:200] + b"X" * 30 + text[:200] + b"Y" * 30 + text[:500],  # long matches
+        b"A" * 700 + b"B" * 11 + b"A" * 700,  # runs past 254
+        bytes([0xF2]) * 90 + text[:300] + bytes([0xF2, 0xF2, 1, 2, 0xF2]),  # escapes
+        rng.integers(0, 256, 1500, dtype=np.uint8).tobytes(),  # random
+        b"abcdefgh" * 200,  # periodic
+        b"".join(b"CTXT" + bytes([i]) * 9 for i in range(40)),  # heur
+        b"tiny",
+        (text * 3)[:4096],  # multi-254 lengths
+        b"",
+        b"Z" * 71,
+        b"Z" * 72,
+    ]
+
+
+def phase_parity_prepass(card: str) -> dict:
+    """K4, K5 and K6 against their plain versions on the same rows, byte
+    for byte; K4's CRCs against the host C++; step latency of each on
+    one row (one thread per row or lane: launch time over steps)."""
+    import torch
+    from bzip3_tpu_torch.ops import host
+    from bzip3_tpu_torch.ops.device import crc32, crc32_cuda, lzp, lzp_cuda
+
+    rows = _lzp_cases()
+    n = max(map(len, rows))
+    data, lens = _pad(rows, n)
+    d_cpu, l_cpu = torch.from_numpy(data), torch.from_numpy(lens)
+    d_gpu, l_gpu = d_cpu.cuda(), l_cpu.cuda()
+    before = launch_counts()
+
+    # K4: lane states at the device lane count (one byte a lane here)
+    # and at 128 lanes (32-byte segments), then whole CRCs.
+    k4_err, k4_plain_ms = 0, 0.0
+    for lanes in (crc32.LANES, 128):
+        t0 = time.perf_counter()
+        want = crc32.crc_lane_scan(d_cpu, l_cpu, lanes)
+        k4_plain_ms += (time.perf_counter() - t0) * 1e3
+        got = crc32_cuda.crc_lane_scan(d_gpu, l_gpu, lanes).cpu()
+        _require(got.shape == want.shape, (got.shape, want.shape))
+        k4_err = max(k4_err, int((got - want).abs().max()))
+    _require(k4_err == 0, "K4 differs from the plain lane scan")
+    crcs = crc32_cuda.crc32_batch(d_gpu, l_gpu).cpu().tolist()
+    _require(crcs == [host.crc32(r) for r in rows], "K4 CRCs differ from the host C++")
+    k4_ms = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(d_gpu, l_gpu, crc32.LANES), 5)
+
+    # K5 against the plain encoder.
+    t0 = time.perf_counter()
+    p_out, p_lens = lzp.lzp_encode_batch(d_cpu, l_cpu)
+    k5_plain_ms = (time.perf_counter() - t0) * 1e3
+    k_out, k_lens = lzp_cuda.lzp_encode(d_gpu, l_gpu)
+    k_out, k_lens = k_out.cpu().numpy(), k_lens.cpu().numpy()
+    p_out, p_lens = p_out.numpy(), p_lens.numpy()
+    _require((k_lens == p_lens).all(), (k_lens.tolist(), p_lens.tolist()))
+    _require(int((p_lens > 0).sum()) >= 6, f"LZP applied to too few rows: {p_lens.tolist()}")
+    k5_err = max(_row_diff(k_out[i, : max(0, p_lens[i])], p_out[i, : max(0, p_lens[i])])
+                 for i in range(len(rows)))
+    _require(k5_err == 0, "K5 differs from the plain encoder")
+    k5_ms = _cuda_ms(lambda: lzp_cuda.lzp_encode(d_gpu, l_gpu), 3)
+
+    # K6 on the encoded rows, a stream cut after its first token, and
+    # rows of length 0 and 3; max_out cuts the longest row short.
+    enc = [p_out[i, : p_lens[i]].tobytes() for i in range(len(rows)) if p_lens[i] > 0]
+    first = next(e for e in enc if 0xF2 in e[4:])
+    enc += [first[: first.index(0xF2, 4) + 1], b"", b"abc"]
+    e_arr, e_lens = _pad(enc, max(map(len, enc)))
+    e_cpu, el_cpu = torch.from_numpy(e_arr), torch.from_numpy(e_lens)
+    e_gpu, el_gpu = e_cpu.cuda(), el_cpu.cuda()
+    max_out = n - 64
+    t0 = time.perf_counter()
+    q_out, q_lens = lzp.lzp_decode_batch(e_cpu, el_cpu, max_out)
+    k6_plain_ms = (time.perf_counter() - t0) * 1e3
+    g_out, g_lens = lzp_cuda.lzp_decode(e_gpu, el_gpu, max_out)
+    g_out, g_lens = g_out.cpu().numpy(), g_lens.cpu().numpy()
+    q_out, q_lens = q_out.numpy(), q_lens.numpy()
+    _require((g_lens == q_lens).all(), (g_lens.tolist(), q_lens.tolist()))
+    _require(q_lens[-3:].tolist() == [-1, -1, -1] and (q_lens[:-3] > 0).all(), q_lens.tolist())
+    _require(int(q_lens.max()) == max_out, "no row was cut at max_out")
+    k6_err = max(_row_diff(g_out[i, : max(0, q_lens[i])], q_out[i, : max(0, q_lens[i])])
+                 for i in range(len(enc)))
+    _require(k6_err == 0, "K6 differs from the plain decoder")
+    k6_ms = _cuda_ms(lambda: lzp_cuda.lzp_decode(e_gpu, el_gpu, max_out), 3)
+    parity_launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+
+    # Step latency, one thread on one row: K4 on a 64 KiB lane; K5 and
+    # K6 on 1 MiB of random bytes without 0xF2, a literal at every step
+    # (K5 stops at out_cap after MiB - 8 of them, K6 decodes all MiB).
+    rng = np.random.default_rng(13)
+    lane = torch.from_numpy(rng.integers(0, 256, (1, 64 << 10), dtype=np.uint8)).cuda()
+    lane_len = torch.tensor([64 << 10], dtype=torch.int32).cuda()
+    k4_step_ns = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(lane, lane_len, 1), 3) * 1e6 / (64 << 10)
+    lit = rng.integers(0, 255, (1, MiB), dtype=np.uint8)
+    lit[lit == 0xF2] = 0xF1
+    big = torch.from_numpy(lit).cuda()
+    big_len = torch.tensor([MiB], dtype=torch.int32).cuda()
+    _require(int(lzp_cuda.lzp_encode(big, big_len)[1][0]) == -1, "1 MiB literal row: LZP applied")
+    k5_step_ns = _cuda_ms(lambda: lzp_cuda.lzp_encode(big, big_len), 2) * 1e6 / (MiB - 8)
+    back, back_lens = lzp_cuda.lzp_decode(big, big_len, MiB)
+    _require(int(back_lens[0]) == MiB and torch.equal(back, big), "1 MiB literal row: K6")
+    k6_step_ns = _cuda_ms(lambda: lzp_cuda.lzp_decode(big, big_len, MiB), 2) * 1e6 / MiB
+    out = {
+        "phase": "parity_prepass", "card": card, "rows": len(rows), "width": n, "tolerance": 0,
+        "k4": {"max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "shape": [len(rows), n],
+               "plain_device": "cpu", "crcs_equal_host": True, "step_ns": k4_step_ns},
+        "k5": {"max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms, "shape": [len(rows), n],
+               "plain_device": "cpu", "out_lens": p_lens.tolist(), "step_ns": k5_step_ns},
+        "k6": {"max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
+               "shape": list(e_arr.shape), "plain_device": "cpu", "out_lens": q_lens.tolist(),
+               "max_out": max_out, "step_ns": k6_step_ns},
+        "parity_launches": parity_launches,
+    }
+    emit(out)
+    return out
+
+
+def log_corpus(size: int, seed: int) -> bytes:
+    """Seeded web-server access log lines (combined log format): paths,
+    referers and user agents repeat, each 40 bytes or more, so LZP
+    finds long matches."""
+    rng = np.random.default_rng(seed)
+    agents = [
+        b"Mozilla/5.0 (Windows NT 10.0; Win64; x64) AppleWebKit/537.36 (KHTML, like Gecko) "
+        b"Chrome/%d.0.%d.%d Safari/537.36" % (100 + i, 4000 + 37 * i, 60 + i) for i in range(12)
+    ] + [
+        b"Mozilla/5.0 (X11; Linux x86_64; rv:%d.0) Gecko/20100101 Firefox/%d.0" % (i, i)
+        for i in range(90, 100)
+    ] + [b"curl/7.%d.0 (x86_64-pc-linux-gnu) libcurl/7.%d.0 OpenSSL/3.0.2" % (i, i)
+         for i in range(60, 68)]
+    words = [bytes(rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8),
+                              int(rng.integers(3, 10)))) for _ in range(300)]
+    paths = [b"/" + b"/".join(words[j] for j in rng.integers(0, 300, int(rng.integers(2, 6))))
+             + (b".html", b".png", b".js", b"/")[i % 4] for i in range(400)]
+    lines = []
+    total = 0
+    n = size // 120 + 1000
+    ips = rng.integers(1, 255, (n, 4))
+    pi = rng.zipf(1.3, n) % len(paths)
+    ai = rng.integers(0, len(agents), n)
+    ri = rng.zipf(1.5, n) % len(paths)
+    st = rng.choice([200, 200, 200, 304, 404, 500], n)
+    sz = rng.integers(100, 90000, n)
+    sec = np.cumsum(rng.integers(0, 3, n))
+    for k in range(n):
+        s_ = int(sec[k])
+        line = b'%d.%d.%d.%d - - [16/Oct/2026:%02d:%02d:%02d +0000] "GET %s HTTP/1.1" %d %d ' \
+            b'"https://example.org%s" "%s"\n' % (
+                *ips[k], (s_ // 3600) % 24, (s_ // 60) % 60, s_ % 60, paths[pi[k]],
+                st[k], sz[k], paths[ri[k]], agents[ai[k]])
+        lines.append(line)
+        total += len(line)
+        if total >= size:
+            break
+    out = b"".join(lines)[:size]
+    _require(len(out) == size, (len(out), size))
+    return out
+
+
+def sparse_block(size: int, seed: int) -> bytes:
+    """Short random records between runs of zero bytes (a sparse file or
+    a zero-filled table), where RLE is kept."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros(size, np.uint8)
+    pos = 0
+    while pos < size:
+        pos += int(rng.integers(100, 2000))
+        rec = int(rng.integers(8, 64))
+        out[pos : pos + rec] = rng.integers(1, 256, min(rec, max(0, size - pos)), dtype=np.uint8)
+        pos += rec
+    return out.tobytes()
+
+
+def phase_main_prepass(card: str, data: bytes, bs: int, blocks: int) -> dict:
+    """The device prepass chain at full width: ``blocks`` x ``bs``
+    through the stream API on the card, against the default path."""
+    import torch
+    from bzip3_tpu_torch import compress_file, decompress_file
+    from bzip3_tpu_torch.container.stream import iter_chunks
+    from bzip3_tpu_torch.engines import DeviceEngine
+    from bzip3_tpu_torch.models.block_codec import parse_block_header
+
+    eng = DeviceEngine("cuda", profile=True, device_prepass=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    comp = io.BytesIO()
+    compress_file(io.BytesIO(data), comp, bs, engine=eng, batch_size=blocks)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    enc_launches = launch_counts()
+    t0 = time.perf_counter()
+    back = io.BytesIO()
+    decompress_file(io.BytesIO(comp.getvalue()), back, engine=eng, batch_size=blocks)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    _require(back.getvalue() == data, "device prepass round trip differs")
+    default = io.BytesIO()
+    compress_file(io.BytesIO(data), default, bs, engine=DeviceEngine("cuda", device_prepass=False),
+                  batch_size=blocks)
+    _require(comp.getvalue() == default.getvalue(),
+             "device prepass stream differs from the default path's")
+    models = [parse_block_header(p).model
+              for _, _, p in iter_chunks(io.BytesIO(comp.getvalue()[9:]), bs)]
+    _require(any(m & 2 for m in models) and any(m & 4 for m in models), f"models {models}")
+    _require(all(launches[k] > 0 for k in launches), f"a kernel did not launch: {launches}")
+    _require(eng.reencoded_rows == 0, eng.reencoded_rows)
+    out = {
+        "phase": "main_prepass", "card": card, "block_size": bs, "blocks": blocks,
+        "input_bytes": len(data), "compressed_bytes": len(comp.getvalue()),
+        "ratio": len(comp.getvalue()) / len(data), "models": models,
+        "identical_to_default_path": True,
+        "encode_s": enc_s, "decode_s": dec_s,
+        "encode_mib_s": len(data) / MiB / enc_s,
+        "decode_mib_s": len(data) / MiB / dec_s,
+        "launches": launches, "encode_launches": enc_launches,
+        "reencoded_rows": eng.reencoded_rows, "peak_device_bytes": peak,
+        "stages_s": {k: round(v, 6) for k, v in eng.timer.totals.items()},
+        "stage_calls": dict(eng.timer.counts),
+    }
+    emit(out)
+    return out
+
+
+def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int) -> dict:
+    """K4, K5 and K6 on the prepass phase's own [blocks, bs] rows, timed
+    with CUDA events and checked in full against the host C++: K4's
+    CRCs, K5 on the post-RLE rows, K6 back to K5's input."""
+    import torch
+    from bzip3_tpu_torch.ops import host
+    from bzip3_tpu_torch.ops.device import crc32, crc32_cuda, lzp_cuda, rle
+
+    raw = [data[i * bs : (i + 1) * bs] for i in range(blocks)]
+    arr, lens = _pad(raw, bs)
+    orig, orig_lens = torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
+    states = crc32_cuda.crc_lane_scan(orig, orig_lens, crc32.LANES)
+    crcs = crc32.crc32_from_lanes(states, bs, orig_lens).cpu().tolist()
+    _require(crcs == [host.crc32(r) for r in raw], "K4 CRCs differ from the host C++")
+    k4_ms = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(orig, orig_lens, crc32.LANES), 5)
+
+    r_out, r_lens = rle.rle_encode_batch(orig, orig_lens, bs + 64)
+    use_rle = r_lens < orig_lens
+    cur = torch.where(use_rle[:, None], r_out[:, :bs], orig)
+    cur_lens = torch.where(use_rle, r_lens, orig_lens)
+    del r_out
+    (l_out, l_lens), k5_ms = _timed(lambda: lzp_cuda.lzp_encode(cur, cur_lens))
+    cur_np, cl = cur.cpu().numpy(), cur_lens.cpu().tolist()
+    l_np, ll = l_out.cpu().numpy(), l_lens.cpu().tolist()
+    for i in range(blocks):
+        want = host.lzp_encode(cur_np[i, : cl[i]].tobytes())
+        _require(ll[i] == (-1 if want is None else len(want)), f"K5 length, row {i}")
+        _require(want is None or l_np[i, : ll[i]].tobytes() == want, f"K5 bytes, row {i}")
+    (d_out, d_lens), k6_ms = _timed(
+        lambda: lzp_cuda.lzp_decode(l_out, l_lens.clamp(min=0), bs))
+    d_np, dl = d_out.cpu().numpy(), d_lens.cpu().tolist()
+    for i in range(blocks):
+        if ll[i] >= 0:
+            _require(dl[i] == cl[i] and (d_np[i, : dl[i]] == cur_np[i, : cl[i]]).all(),
+                     f"K6(K5(x)) differs from x, row {i}")
+    # Serial bound of one thread per row: the longest row run alone.
+    i5, i6 = int(np.argmax(cl)), int(np.argmax(dl))
+    _, k5_row_ms = _timed(lambda: lzp_cuda.lzp_encode(cur[i5 : i5 + 1], cur_lens[i5 : i5 + 1]))
+    _, k6_row_ms = _timed(
+        lambda: lzp_cuda.lzp_decode(l_out[i6 : i6 + 1], l_lens[i6 : i6 + 1].clamp(min=0), bs))
+    k5_steps, k6_steps = cl[i5], max(dl[i6], 1)
+    out = {
+        "phase": "prepass_shapes", "card": card, "shape": [blocks, bs],
+        "row_lens": lens.tolist(), "post_rle_lens": cl, "lzp_lens": ll, "crcs_equal_host": True,
+        "k4_ms": k4_ms, "lanes": crc32.LANES, "seg": -(-bs // crc32.LANES),
+        "k5_ms": k5_ms, "k6_ms": k6_ms, "k5_equal_host": True, "k6_round_trip": True,
+        "k5_ns_per_byte_step": k5_ms * 1e6 / k5_steps, "k6_ns_per_byte_step": k6_ms * 1e6 / k6_steps,
+        "k5_steps": k5_steps, "k6_steps": k6_steps,
+        "k5_longest_row_alone_ms": k5_row_ms, "k6_longest_row_alone_ms": k6_row_ms,
+    }
+    emit(out)
+    return out
+
+
+def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: dict,
+                 pshapes: dict) -> dict:
+    """The kernels of the main paths: launches from the main phases
+    (K1/K2 from the default path, K4-K6 from the device prepass chain),
+    times at their rows, plain times from the parity phases (the plain
+    CM coder takes ~0.2 ms a bit step: hours at 16 MiB)."""
     ins, pays = shapes["row_lens"], shapes["payload_lens"]
     rows = []
     for kid, key, fn, src_line in (
@@ -428,6 +749,46 @@ def kernels_line(parity: dict, main: dict, shapes: dict) -> dict:
             "serial_bound_ms": 8 * max(ins) * ns_bit * 1e-6,
             "ns_per_bit_step": ns_bit,
         })
+
+    k_rows, raw = pshapes["shape"][0], pshapes["row_lens"]
+    mid, lz = pshapes["post_rle_lens"], pshapes["lzp_lens"]
+    lz_out = [max(0, v) for v in lz]
+    dec_out = [mid[i] for i in range(k_rows) if lz[i] >= 0]
+    # serial bounds: K4's segment at one lane's measured step latency;
+    # K5/K6 the wave's longest row run alone (one thread per row)
+    for kid, key, fn, src, src_line, nbytes, ops, serial_ms in (
+        # K4: every byte read once, [K, L] int32 lane states written
+        ("K4", "crc_lanes", "crc_lane_kernel", "crc32_kernels.cu",
+         "bzip3_tpu/ops/device/crc32_pallas.py:45",
+         sum(raw) + 4 * k_rows * pshapes["lanes"] + 4 * k_rows,
+         OPS_PER_CRC_BYTE * sum(raw), pshapes["seg"] * pparity["k4"]["step_ns"] * 1e-6),
+        # K5: post-RLE rows read, LZP streams written; one step a byte
+        ("K5", "lzp_encode", "lzp_encode_kernel", "lzp_kernels.cu",
+         "bzip3_tpu/ops/device/lzp_pallas.py:135",
+         sum(mid) + sum(lz_out) + 8 * k_rows, OPS_PER_LZP_STEP * sum(mid),
+         pshapes["k5_longest_row_alone_ms"]),
+        # K6: the LZP streams read, the rows they came from written
+        ("K6", "lzp_decode", "lzp_decode_kernel", "lzp_kernels.cu",
+         "bzip3_tpu/ops/device/lzp_pallas.py:285",
+         sum(lz_out) + sum(dec_out) + 8 * k_rows, OPS_PER_LZP_STEP * sum(dec_out),
+         pshapes["k6_longest_row_alone_ms"]),
+    ):
+        k = kid.lower()
+        bound_ms, bound_by = _bound(nbytes, ops)
+        rows.append({
+            "name": f"{kid} {fn}", "route": "cuda",
+            "source": f"bzip3_tpu_torch/csrc/{src}", "replaces": src_line,
+            "launches": pmain["launches"][key],
+            "max_abs_err": pparity[k]["max_abs_err"],
+            "ms": pshapes[f"{k}_ms"], "plain_ms": pparity[k]["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": pshapes["shape"],
+            "plain_shape": pparity[k]["shape"],
+            "plain_device": pparity[k]["plain_device"],
+            "kernel_ms_at_plain_shape": pparity[k]["ms"],
+            "serial_bound_ms": serial_ms,
+            "ns_per_step_one_row": pparity[k]["step_ns"],
+        })
     return {"kernels": rows}
 
 
@@ -450,12 +811,17 @@ def main() -> int:
     phase_device(smi)
     phase_build(smi)
     parity = phase_parity(smi)
+    pparity = phase_parity_prepass(smi)
     phase_golden(smi)
     bs, blocks = 16 * MiB, 8
     data = corpus(blocks * bs, seed=0)
     main_res = phase_main(smi, data, bs, blocks)
     shapes = phase_main_shapes(smi, data, bs, blocks)
-    emit(kernels_line(parity, main_res, shapes))
+    # 4 text blocks, 3 of log lines, 1 sparse: LZP and RLE both kept
+    pdata = data[: 4 * bs] + log_corpus(3 * bs, seed=1) + sparse_block(bs, seed=2)
+    pmain = phase_main_prepass(smi, pdata, bs, blocks)
+    pshapes = phase_prepass_shapes(smi, pdata, bs, blocks)
+    emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

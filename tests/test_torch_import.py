@@ -1,9 +1,12 @@
-"""The PyTorch port imports neither JAX nor the JAX package.
+"""The PyTorch port and its chip smoke script import neither JAX nor
+the JAX package.
 
 ``conftest.py`` imports jax into the test process, so the check runs in
-a fresh interpreter.
+a fresh interpreter; the smoke script's imports inside its functions are
+read from its source as well.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -20,6 +23,7 @@ names = ["bzip3_tpu_torch"] + [
 ]
 for name in names:
     importlib.import_module(name)
+import chip_smoke
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "bzip3_tpu")
@@ -41,6 +45,23 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout)
-    for name in ("pipeline", "cli", "ops.device.cm_cuda", "ops.host", "container.stream"):
+    for name in (
+        "pipeline", "cli", "ops.device.cm_cuda", "ops.host", "container.stream",
+        "ops.device.crc32_cuda", "ops.device.lzp_cuda", "ops.device.rle", "ops.device.gf2",
+    ):
         assert f"bzip3_tpu_torch.{name}" in got["imported"]
-    assert got["bad"] == [], f"port pulled in {got['bad']}"
+    assert got["bad"] == [], f"port or chip_smoke.py pulled in {got['bad']}"
+
+
+def test_chip_smoke_imports_no_jax_and_no_jax_package():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "bzip3_tpu_torch" in {n.split(".")[0] for n in names}
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "bzip3_tpu")]
+    assert bad == [], f"chip_smoke.py imports {bad}"

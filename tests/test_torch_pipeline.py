@@ -2,8 +2,10 @@
 package's ``DevicePipeline`` on the blocks of ``test_pipeline.py``.
 
 Both produce BZ3v1 block bytes; they must be identical, and each must
-decode the other's.  The port's entry points run on the card by
-default, so without one they must raise rather than use the CPU.
+decode the other's, on the default path and on the device prepass chain
+(``BZ3_TPU_DEVICE_PREPASS=1`` in the JAX package).  The port's entry
+points run on the card by default, so without one they must raise
+rather than use the CPU.
 """
 
 import io
@@ -15,7 +17,8 @@ import torch
 from bzip3_tpu.pipeline import DevicePipeline as JaxPipeline
 from bzip3_tpu_torch import compress, compress_file, decompress, decompress_file
 from bzip3_tpu_torch.engines import DeviceEngine
-from bzip3_tpu_torch.errors import Bz3Error
+from bzip3_tpu_torch.errors import BZ3_ERR_CRC, Bz3Error
+from bzip3_tpu_torch.models.block_codec import parse_block_header
 
 BS = 1024
 RNG = np.random.default_rng(7)
@@ -114,3 +117,61 @@ def test_default_device_raises_without_cuda():
         compress(b"x" * 100)
     with pytest.raises(RuntimeError, match="CUDA"):
         decompress_file(io.BytesIO(b"BZ3v1\x00\x00\x01\x00"), io.BytesIO())
+
+
+@pytest.fixture(scope="module")
+def prepass_engine():
+    return DeviceEngine(device="cpu", device_prepass=True)
+
+
+@pytest.fixture(scope="module")
+def prepass_blocks(prepass_engine, blocks):
+    return prepass_engine.encode_blocks(blocks, BS)
+
+
+@pytest.fixture(scope="module")
+def jax_full(blocks, prepass_blocks):
+    """The JAX full-device chain once: its encode of the blocks, and its
+    decode of the port's device-prepass blocks."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BZ3_TPU_DEVICE_PREPASS", "1")
+        pipe = JaxPipeline(BS)
+        assert pipe._full_cores()
+        enc = pipe.encode_blocks(blocks)
+        dec = pipe.decode_blocks([(e, len(b)) for e, b in zip(prepass_blocks, blocks)])
+    return enc, dec
+
+
+def test_device_prepass_matches_jax_full_chain(
+    prepass_engine, prepass_blocks, port_blocks, jax_full, blocks
+):
+    jax_enc, jax_dec = jax_full
+    assert prepass_blocks == jax_enc == port_blocks
+    models = {parse_block_header(b).model for b in prepass_blocks}
+    assert {2, 4} <= {m & 6 for m in models}  # LZP and RLE each kept somewhere
+    assert jax_dec == blocks
+    assert prepass_engine.decode_blocks([(e, len(b)) for e, b in zip(jax_enc, blocks)], BS) == blocks
+    assert prepass_engine.reencoded_rows == 0
+
+
+def test_device_crc_switches_keep_the_default_bytes(port_blocks, blocks):
+    eng = DeviceEngine(device="cpu", host_crc=False, device_crc_verify=True)
+    assert eng.encode_blocks(blocks, BS) == port_blocks
+    pairs = [(e, len(b)) for e, b in zip(port_blocks, blocks)]
+    assert eng.decode_blocks(pairs, BS) == blocks
+    for i in (2, 3):  # a coded block and a literal block
+        bad = bytearray(port_blocks[i])
+        bad[0] ^= 0x01
+        with pytest.raises(Bz3Error):
+            eng.decode_blocks([(bytes(bad), len(blocks[i]))], BS)
+
+
+def test_device_prepass_corrupted_lzp_payload_raises(prepass_engine, prepass_blocks, blocks):
+    i = next(j for j, b in enumerate(prepass_blocks) if parse_block_header(b).model & 2)
+    hdr = parse_block_header(prepass_blocks[i])
+    bad = bytearray(prepass_blocks[i])
+    for k in range(hdr.header_size() + 4, len(bad), 7):
+        bad[k] ^= 0x5A
+    with pytest.raises(Bz3Error) as err:
+        prepass_engine.decode_blocks([(bytes(bad), len(blocks[i]))], BS)
+    assert err.value.code == BZ3_ERR_CRC
