@@ -3,8 +3,9 @@
 Two shared libraries, each with a plain C interface loaded by ctypes:
 
 - ``libbz3_host.so``: the host pre/post passes (CRC32-C, RLE, LZP) from
-  ``csrc/host_stages.cpp``, compiled with ``g++``.  Host code on every
-  machine.
+  ``csrc/host_stages.cpp`` and the host BWT (SA-IS forward, quad-merge
+  inverse) from ``csrc/host_bwt.cpp``, compiled with ``g++``.  Host code
+  on every machine.
 - ``libbz3_kernels.so``: the hand-written CUDA kernels from
   ``csrc/*.cu``, compiled with ``nvcc`` for ``sm_90a`` (Hopper).  Each
   ``.cu`` compiles to its own object in parallel, then one link.
@@ -128,7 +129,7 @@ def load_host() -> ctypes.CDLL:
     return _load(
         "host",
         os.path.join(HOST_DIR, "libbz3_host.so"),
-        [os.path.join(CSRC, "host_stages.cpp")],
+        [os.path.join(CSRC, "host_stages.cpp"), os.path.join(CSRC, "host_bwt.cpp")],
         _build_host,
     )
 

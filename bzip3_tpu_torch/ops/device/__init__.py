@@ -5,14 +5,24 @@
 - ``rle_encode_batch`` / ``rle_decode_batch``: mRLE as tensor code (``rle``);
 - ``lzp_encode`` / ``lzp_decode``: LZP, CUDA kernels K5/K6 (``lzp_cuda``);
 - ``bwt_forward_batch`` / ``bwt_inverse_batch``: BWT as tensor code (``bwt``);
-- ``cm_encode`` / ``cm_decode``: the CM coder, CUDA kernels K1/K2 (``cm_cuda``).
+- ``cm_encode`` / ``cm_decode``: the CM coder, CUDA kernels K1/K2 (``cm_cuda``),
+  or K3a/K3b for rows wider than one launch chunk;
+- ``cm_encode_resumable`` / ``cm_decode_resumable`` / ``cm_decode_stream``:
+  the CM coder in launches of a chunk of steps each, CUDA kernels K3a,
+  K3b and K3c (``cm_cuda``).
 
 Each kernel wrapper takes its plain PyTorch version (``crc32``, ``lzp``,
 ``cm``) for tensors on the CPU.
 """
 
 from .bwt import bwt_forward_batch, bwt_inverse_batch
-from .cm_cuda import cm_decode, cm_encode
+from .cm_cuda import (
+    cm_decode,
+    cm_decode_resumable,
+    cm_decode_stream,
+    cm_encode,
+    cm_encode_resumable,
+)
 from .crc32_cuda import crc32_batch
 from .lzp_cuda import lzp_decode, lzp_encode
 from .rle import rle_decode_batch, rle_encode_batch
@@ -21,7 +31,10 @@ __all__ = [
     "bwt_forward_batch",
     "bwt_inverse_batch",
     "cm_decode",
+    "cm_decode_resumable",
+    "cm_decode_stream",
     "cm_encode",
+    "cm_encode_resumable",
     "crc32_batch",
     "lzp_decode",
     "lzp_encode",

@@ -4,9 +4,9 @@ Bit-exact with the reference coder (src/libbz3.c:331-494) and the JAX
 package's ``ops/device/cm.py``.  Each row of a [K, N] batch is one
 independent block with its own model; the rows advance in lockstep, one
 bit step at a time, as [K] tensor operations.  This is the plain
-version of the CUDA kernels K1/K2 (``cm_cuda.py``): the tests hold it
-against the JAX package, and ``chip_smoke.py`` holds the kernels
-against it.
+version of the CUDA kernels K1/K2 and of their resumable forms K3a-K3c
+(``cm_cuda.py``): the tests hold it against the JAX package, and
+``chip_smoke.py`` holds the kernels against it.
 
 Model state per row (``state`` in src/libbz3.c:333-342):
   C0[256], C1[256*256], C2[512*17]  adaptive 16-bit counters
@@ -16,12 +16,21 @@ Range state is int64 masked to 32 bits.  The range split
 ``((high - low) * (ssep * 3 + p)) >> 18`` is one int64 product: the
 operands are below 2^32 and 2^18.
 
-Rows are coded longest first, and a row leaves the batch once its
-bytes are done (the encoder flushes it then), so no step carries masks
-for finished rows.
+A coder is a state object (``_EncodeState``, ``_DecodeState``) and a
+function that runs its rows over the steps (bytes) ``[start, stop)``
+of one window.  The one-shot coders run a single window over all
+steps; the resumable ones run windows of ``chunk_steps`` with the state
+carried between them, as the kernels carry it between launches.  A
+row's 4-byte flush happens once, in the window where the row ends (a
+row of length 0 in the first window); a row that ended earlier is left
+untouched.  Rows are held longest first, so the rows still coding at
+any step are a prefix, and a row leaves the batch once its bytes are
+done: no step carries masks for finished rows.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -30,6 +39,20 @@ M32 = 0xFFFFFFFF
 C0_SIZE = 256
 C1_SIZE = 256 * 256
 C2_SIZE = 512 * 17
+
+
+def default_chunk_steps() -> int:
+    """Steps (bytes) a resumable window codes: ``BZ3_TPU_CM_CHUNK_MI``
+    MiB, 16 by default, the JAX package's launch chunk."""
+    return int(os.environ.get("BZ3_TPU_CM_CHUNK_MI", "16")) << 20
+
+
+def windows(n: int, chunk_steps: int) -> list[tuple[int, int]]:
+    """[start, stop) windows of ``chunk_steps`` over n steps; one empty
+    window when n is 0, so that empty rows are still flushed."""
+    if chunk_steps <= 0:
+        raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
+    return [(s, min(s + chunk_steps, n)) for s in range(0, n, chunk_steps)] or [(0, 0)]
 
 
 def cm_fresh_tables(k_dim: int, device=None):
@@ -47,87 +70,114 @@ def cm_fresh_tables(k_dim: int, device=None):
 
 class _Model:
     """The rows' tables in one flat int64 tensor, [C0 | C1 | C2] with
-    each row's part contiguous.  A bit step reads its three counters
-    with one gather, its two SSE knots with another, and writes all
-    four updates with one scatter."""
+    each row's part contiguous.
+
+    One byte visits 8 contexts (nodes 1..255 of the bit tree), each once,
+    and their counters and SSE knots lie at distinct places, so every
+    read of a byte can come before its first update: ``predict`` gathers
+    the predictions of a byte's contexts (the encoder knows all 8, the
+    decoder takes all 256 nodes and picks as it goes) and ``update``
+    writes the 8 visited contexts' counters in one scatter after the
+    byte."""
 
     def __init__(self, k_dim: int, device):
         c0, c1, c2 = cm_fresh_tables(k_dim, device)
         self.t = torch.cat([c0.view(-1), c1.view(-1), c2.view(-1)]).long()
         rows = torch.arange(k_dim, dtype=torch.int64, device=device)
-        self.r0 = rows * C0_SIZE
-        self.r1 = k_dim * C0_SIZE + rows * C1_SIZE
-        self.r2 = k_dim * (C0_SIZE + C1_SIZE) + rows * C2_SIZE
-        self.mix = torch.tensor([[7], [7], [2]], device=device)  # p0, p1, p2
-        self.rates = torch.tensor([[2], [4], [6], [6]], device=device)  # src/libbz3.c:347-348
-        self.knots = torch.tensor([[0], [1]], device=device)
+        self.bases = (
+            rows * C0_SIZE,
+            k_dim * C0_SIZE + rows * C1_SIZE,
+            k_dim * (C0_SIZE + C1_SIZE) + rows * C2_SIZE,
+        )
+        self.keep(k_dim)
+        self.mix = torch.tensor([7, 7, 2], device=device)[:, None, None]  # p0, p1, p2
+        # src/libbz3.c:347-348: C0, C1, both SSE knots
+        self.rates = torch.tensor([2, 4, 6, 6], device=device)[:, None, None]
+        self.knots = torch.tensor([0, 1], device=device)[:, None, None]
+        self.nodes = torch.arange(256, device=device)[:, None]  # node 0 is never visited
 
     def keep(self, k: int) -> None:
-        """Drop all rows but the first k."""
-        self.r0, self.r1, self.r2 = self.r0[:k], self.r1[:k], self.r2[:k]
+        """Code the first k rows only."""
+        self.r0, self.r1, self.r2 = (b[:k] for b in self.bases)
 
-    def start_byte(self, c1, c2, f) -> None:
-        """Per-byte bases: the C0 table, the C1 rows of the two previous
-        bytes (as one [3k] vector) and the SSE row of run flag f."""
-        self.base3 = torch.cat([self.r0, self.r1 + (c1 << 8), self.r1 + (c2 << 8)])
-        self.sse_base = self.r2 + f * 17
-
-    def predict(self, ctx3):
-        """(p, ssep) for context ctx, given as [3k] (ctx three times), and
-        the counters the update writes (src/libbz3.c:376-387)."""
-        k = ctx3.shape[0] // 3
-        i3 = self.base3 + ctx3
-        v = self.t.index_select(0, i3)
-        p = (v.view(3, k) * self.mix).sum(0) >> 4
-        sse = self.sse_base + ctx3[:k] * 34 + (p >> 12)  # (2*ctx + f)*17 + p/4096
-        knots = sse + self.knots  # [2, k]
-        x = self.t.index_select(0, knots.view(-1)).view(2, k)
+    def predict(self, c1, c2, f, ctx):
+        """``ssep * 3 + p`` (src/libbz3.c:376-387), the range split factor,
+        for contexts ctx [T, k] of the next byte after bytes c1, c2 with
+        run flag f, and the counters an update of those contexts writes."""
+        rows3 = torch.stack([self.r0, self.r1 + (c1 << 8), self.r1 + (c2 << 8)])
+        i3 = rows3[:, None, :] + ctx  # [3, T, k]: C0, C1 of c1, C1 of c2
+        v = self._gather(i3)
+        p = (v * self.mix).sum(0) >> 4
+        sse = self.r2 + (ctx * 2 + f) * 17 + (p >> 12)
+        knots = sse + self.knots  # [2, T, k]
+        x = self._gather(knots)
         ssep = x[0] + (((x[1] - x[0]) * (p & 4095)) >> 12)
-        idx = torch.cat([i3[: 2 * k], knots.view(-1)])  # C0, C1 of c1, both knots
-        old = torch.cat([v[: 2 * k], x.view(-1)]).view(4, k)
-        return p, ssep, (idx, old)
+        return ssep * 3 + p, (i3, v, knots, x)
 
-    def update(self, state, bit) -> None:
-        """Counter updates toward the coded bit ([k] bool)."""
-        idx, old = state
+    def _gather(self, idx):
+        return self.t.index_select(0, idx.reshape(-1)).view(idx.shape)
+
+    def update(self, state, bits) -> None:
+        """Counter updates toward the coded bits ([T, k] bool)."""
+        i3, v, knots, x = state
+        old = torch.cat([v[:2], x])  # C0, C1 of c1, both knots
         r = self.rates
-        new = torch.where(bit, old + ((old ^ 65535) >> r), old - (old >> r))
-        self.t.index_copy_(0, idx, new.view(-1))
+        new = torch.where(bits, old + ((old ^ 65535) >> r), old - (old >> r))
+        self.t.index_copy_(0, torch.cat([i3[:2], knots]).view(-1), new.view(-1))
 
 
-def _next_ctx(ctx3, bit_long):
-    """ctx = 2*ctx + bit on the [3k] repeated context."""
-    k = bit_long.shape[0]
-    return (ctx3.view(3, k) * 2 + bit_long).view(-1)
+def _byte_path(c):
+    """The contexts a byte c [k] visits, most significant bit first, and
+    its bits: ([8, k], [8, k] bool)."""
+    shifts = torch.arange(8, 0, -1, device=c.device)[:, None]
+    return (c + 256) >> shifts, ((c >> (shifts - 1)) & 1) == 1
 
 
-def cm_encode_batch(data: torch.Tensor, lengths: torch.Tensor, out_width: int | None = None):
-    """Encode each row data[k, :lengths[k]] with a fresh model.
+def _running(ends: list[int], start: int) -> int:
+    """Rows (a prefix, longest first) a window from ``start`` codes: those
+    not yet done, and in the first window every row."""
+    return len(ends) if start == 0 else sum(e > start for e in ends)
 
-    data: [K, N] uint8; lengths: [K] int32.  Returns (out [K, W] uint8,
-    out_lens [K] int32), W = ``out_width`` or N + N//8 + 64.  A row whose
-    payload exceeds W keeps counting: its length is the true one and
-    its writes past W are dropped.  Bytes past a row's length are 0.
-    """
-    k_dim, n = data.shape
-    dev = data.device
-    w = out_width if out_width is not None else n + n // 8 + 64
-    lens = lengths.long().clamp(0, n)
-    order = torch.argsort(lens, descending=True, stable=True)
-    ends = lens[order].tolist()  # row j (in coding order) ends after ends[j] bytes
-    x = data.index_select(0, order).long()
-    model = _Model(k_dim, dev)
-    # column w of each row is the sink for dropped writes
-    out = torch.zeros(k_dim * (w + 1), dtype=torch.uint8, device=dev)
-    orow = torch.arange(k_dim, dtype=torch.int64, device=dev) * (w + 1)
-    low = torch.zeros(k_dim, dtype=torch.int64, device=dev)
-    high = torch.full((k_dim,), M32, dtype=torch.int64, device=dev)
-    optr = torch.zeros_like(low)
-    c1 = torch.zeros_like(low)
-    c2 = torch.zeros_like(low)
-    run = torch.zeros_like(low)
-    out_lens = torch.zeros_like(low)
-    shifts = torch.arange(7, -1, -1, device=dev)[:, None]
+
+class _EncodeState:
+    """Encoder of K rows between windows: model tables, the registers
+    [low, high, optr, c1, c2, run] as one [6, K] tensor, the output so
+    far (each row W + 1 wide; column W is the sink for dropped writes)
+    and the lengths of the rows already flushed."""
+
+    def __init__(self, lengths: torch.Tensor, n: int, w: int, device):
+        k_dim = lengths.shape[0]
+        lens = lengths.long().clamp(0, n)
+        self.order = torch.argsort(lens, descending=True, stable=True)
+        self.ends = lens[self.order].tolist()  # row j (coding order) ends after ends[j] bytes
+        self.w = w
+        self.model = _Model(k_dim, device)
+        self.out = torch.zeros(k_dim * (w + 1), dtype=torch.uint8, device=device)
+        self.orow = torch.arange(k_dim, dtype=torch.int64, device=device) * (w + 1)
+        self.regs = torch.zeros((6, k_dim), dtype=torch.int64, device=device)
+        self.regs[1] = M32
+        self.out_lens = torch.zeros(k_dim, dtype=torch.int64, device=device)
+
+    def result(self):
+        k_dim, w = len(self.ends), self.w
+        res = torch.empty((k_dim, w), dtype=torch.uint8, device=self.out.device)
+        res[self.order] = self.out.view(k_dim, w + 1)[:, :w]
+        res_lens = torch.empty(k_dim, dtype=torch.int32, device=self.out.device)
+        res_lens[self.order] = self.out_lens.int()
+        return res, res_lens
+
+
+def _encode_window(st: _EncodeState, data: torch.Tensor, start: int, stop: int) -> None:
+    """Encode steps [start, stop) of every row still running; flush the
+    rows that end by ``stop``."""
+    ends, w, model, out = st.ends, st.w, st.model, st.out
+    k = _running(ends, start)
+    if k == 0:
+        return
+    low, high, optr, c1, c2, run = st.regs[:, :k].unbind(0)
+    orow = st.orow[:k]
+    model.keep(k)
+    x = data.index_select(0, st.order[:k])[:, start:stop].long()
 
     def emit(byte, orow, optr, do=None):
         ok = optr < w if do is None else do & (optr < w)
@@ -139,27 +189,23 @@ def cm_encode_batch(data: torch.Tensor, lengths: torch.Tensor, out_width: int | 
         for _ in range(4):
             op = emit(lw >> 24, orow[lo:hi], op)
             lw = (lw << 8) & M32
-        out_lens[lo:hi] = op
+        st.out_lens[lo:hi] = op
 
-    k = k_dim
-    for i in range(ends[0] if k_dim else 0):
+    for i in range(start, min(stop, ends[0])):
         if ends[k - 1] <= i:  # rows that are done leave the batch
             k_new = next(j for j in range(k) if ends[j] <= i)
             flush(k_new, k)
             k = k_new
             low, high, optr, c1, c2, run = (a[:k] for a in (low, high, optr, c1, c2, run))
-            orow, x = orow[:k], x[:k]
+            orow = orow[:k]
             model.keep(k)
-        c = x[:, i]
+        c = x[:k, i - start]
         run = torch.where(c1 == c2, run + 1, 0)
-        model.start_byte(c1, c2, (run > 2).long())
-        bits = (c[None, :] >> shifts) & 1  # [8, k], most significant first
-        is_one = bits == 1
-        ctx3 = torch.ones(3 * k, dtype=torch.int64, device=dev)
+        ctx, bits = _byte_path(c)
+        scale, state = model.predict(c1, c2, (run > 2).long(), ctx)
         for t in range(8):
-            bit = is_one[t]
-            p, ssep, state = model.predict(ctx3)
-            mid = low + (((high - low) * (ssep * 3 + p)) >> 18)
+            bit = bits[t]
+            mid = low + (((high - low) * scale[t]) >> 18)
             high = torch.where(bit, mid, high)
             low = torch.where(bit, low, mid + 1)
             for _ in range(4):  # renorm: at most 4 bytes per bit
@@ -169,72 +215,76 @@ def cm_encode_batch(data: torch.Tensor, lengths: torch.Tensor, out_width: int | 
                 optr = emit(low >> 24, orow, optr, do)
                 low = torch.where(do, (low << 8) & M32, low)
                 high = torch.where(do, ((high << 8) & M32) | 0xFF, high)
-            model.update(state, bit)
-            ctx3 = _next_ctx(ctx3, bits[t])
+        model.update(state, bits)
         c2 = c1
-        c1 = ctx3[:k] & 255
-    flush(0, k)
-
-    res = torch.empty((k_dim, w), dtype=torch.uint8, device=dev)
-    res[order] = out.view(k_dim, w + 1)[:, :w]
-    res_lens = torch.empty(k_dim, dtype=torch.int32, device=dev)
-    res_lens[order] = out_lens.int()
-    return res, res_lens
+        c1 = c
+    live = sum(e > stop for e in ends[:k])
+    flush(live, k)
+    st.regs[:, :live] = torch.stack([low, high, optr, c1, c2, run])[:, :live]
 
 
-def cm_decode_batch(
-    data: torch.Tensor, in_lens: torch.Tensor, out_lens: torch.Tensor, out_width: int
-):
-    """Decode out_lens[k] bytes from each row of data [K, M] uint8.
+class _DecodeState:
+    """Decoder of K rows between windows: model tables, the registers
+    [low, high, code, ip, c1, c2, run] as one [7, K] tensor and the
+    payload rows (longest output first, each with a zero byte after it).
+    The first four code bytes are read here, once."""
 
-    Returns [K, out_width] uint8 (zero past each row's length).  Input
-    past in_lens[k] (clamped to M) reads as -1: an exhausted stream
-    shifts in ``(code << 8) - 1`` (src/libbz3.c:346,437-440).
-    """
-    k_dim, m = data.shape
-    dev = data.device
-    outl = out_lens.long().clamp(0, out_width)
-    order = torch.argsort(outl, descending=True, stable=True)
-    ends = outl[order].tolist()
-    inl = in_lens.long().clamp(0, m).index_select(0, order)
-    flat = torch.cat(
-        [data.index_select(0, order), torch.zeros((k_dim, 1), dtype=torch.uint8, device=dev)],
-        dim=1,
-    ).view(-1)
-    irow = torch.arange(k_dim, dtype=torch.int64, device=dev) * (m + 1)
-    model = _Model(k_dim, dev)
-    out = torch.zeros((k_dim, out_width), dtype=torch.uint8, device=dev)
+    def __init__(self, data, in_lens, out_lens, out_width: int):
+        k_dim, m = data.shape
+        dev = data.device
+        outl = out_lens.long().clamp(0, out_width)
+        self.order = torch.argsort(outl, descending=True, stable=True)
+        self.ends = outl[self.order].tolist()
+        self.m = m
+        self.inl = in_lens.long().clamp(0, m).index_select(0, self.order)
+        self.flat = torch.cat(
+            [data.index_select(0, self.order), torch.zeros((k_dim, 1), dtype=torch.uint8, device=dev)],
+            dim=1,
+        ).view(-1)
+        self.irow = torch.arange(k_dim, dtype=torch.int64, device=dev) * (m + 1)
+        self.model = _Model(k_dim, dev)
+        self.regs = torch.zeros((7, k_dim), dtype=torch.int64, device=dev)
+        self.regs[1] = M32
+        code, ip = self.regs[2], self.regs[3]
+        for _ in range(4):
+            code = ((code << 8) + self.read(ip, self.irow, self.inl)) & M32
+            ip = ip + 1
+        self.regs[2], self.regs[3] = code, ip
 
-    def read(ip, irow, inl):
-        byte = flat[irow + ip.clamp(max=m)].long()
+    def read(self, ip, irow, inl):
+        """The next code byte of each row; -1 past its input (src/libbz3.c:346,437-440)."""
+        byte = self.flat[irow + ip.clamp(max=self.m)].long()
         return torch.where(ip < inl, byte, M32)
 
-    low = torch.zeros(k_dim, dtype=torch.int64, device=dev)
-    high = torch.full((k_dim,), M32, dtype=torch.int64, device=dev)
-    code = torch.zeros_like(low)
-    ip = torch.zeros_like(low)
-    for _ in range(4):
-        code = ((code << 8) + read(ip, irow, inl)) & M32
-        ip = ip + 1
-    c1 = torch.zeros_like(low)
-    c2 = torch.zeros_like(low)
-    run = torch.zeros_like(low)
+    def unsort(self, out: torch.Tensor) -> torch.Tensor:
+        res = torch.empty_like(out)
+        res[self.order] = out
+        return res
 
-    k = k_dim
-    for i in range(ends[0] if k_dim else 0):
+
+def _decode_window(st: _DecodeState, start: int, stop: int, out: torch.Tensor, base: int) -> None:
+    """Decode steps [start, stop) of every row still running into
+    out[row, i - base] (rows in the state's order)."""
+    ends, model = st.ends, st.model
+    k = _running(ends, start)
+    if k == 0:
+        return
+    dev = out.device
+    low, high, code, ip, c1, c2, run = st.regs[:, :k].unbind(0)
+    irow, inl = st.irow[:k], st.inl[:k]
+    model.keep(k)
+    for i in range(start, min(stop, ends[0])):
         if ends[k - 1] <= i:  # rows that are done leave the batch
             k = next(j for j in range(k) if ends[j] <= i)
-            low, high, code, ip, c1, c2, run = (
-                a[:k] for a in (low, high, code, ip, c1, c2, run)
-            )
+            low, high, code, ip, c1, c2, run = (a[:k] for a in (low, high, code, ip, c1, c2, run))
             irow, inl = irow[:k], inl[:k]
             model.keep(k)
         run = torch.where(c1 == c2, run + 1, 0)
-        model.start_byte(c1, c2, (run > 2).long())
-        ctx3 = torch.ones(3 * k, dtype=torch.int64, device=dev)
+        f = (run > 2).long()
+        scale, _ = model.predict(c1, c2, f, model.nodes)  # [256, k]
+        ctx = torch.ones((1, k), dtype=torch.int64, device=dev)
         for _t in range(8):
-            p, ssep, state = model.predict(ctx3)
-            mid = low + (((high - low) * (ssep * 3 + p)) >> 18)
+            mid = low + (((high - low) * scale.gather(0, ctx)[0]) >> 18)
             bit = code <= mid
             high = torch.where(bit, mid, high)
             low = torch.where(bit, low, mid + 1)
@@ -242,17 +292,88 @@ def cm_decode_batch(
                 do = (low ^ high) < TOP
                 if not bool(do.any()):
                     break
-                byte = read(ip, irow, inl)
+                byte = st.read(ip, irow, inl)
                 low = torch.where(do, (low << 8) & M32, low)
                 high = torch.where(do, ((high << 8) & M32) | 0xFF, high)
                 code = torch.where(do, ((code << 8) + byte) & M32, code)
                 ip = ip + do.long()
-            model.update(state, bit)
-            ctx3 = _next_ctx(ctx3, bit.long())
+            ctx = ctx * 2 + bit
+        c = ctx[0] & 255
+        path, bits = _byte_path(c)
+        model.update(model.predict(c1, c2, f, path)[1], bits)
         c2 = c1
-        c1 = ctx3[:k] & 255
-        out[:k, i] = c1.to(torch.uint8)
+        c1 = c
+        out[:k, i - base] = c.to(torch.uint8)
+    live = sum(e > stop for e in ends[:k])
+    st.regs[:, :live] = torch.stack([low, high, code, ip, c1, c2, run])[:, :live]
 
-    res = torch.empty_like(out)
-    res[order] = out
-    return res
+
+def cm_encode_resumable(
+    data: torch.Tensor,
+    lengths: torch.Tensor,
+    out_width: int | None = None,
+    chunk_steps: int | None = None,
+):
+    """Encode each row data[k, :lengths[k]] with a fresh model, in
+    windows of ``chunk_steps`` bytes (default ``default_chunk_steps()``).
+
+    data: [K, N] uint8; lengths: [K] int32.  Returns (out [K, W] uint8,
+    out_lens [K] int32), W = ``out_width`` or N + N//8 + 64.  A row whose
+    payload exceeds W keeps counting: its length is the true one and
+    its writes past W are dropped.  Bytes past a row's length are 0.
+    """
+    n = data.shape[1]
+    w = out_width if out_width is not None else n + n // 8 + 64
+    st = _EncodeState(lengths, n, w, data.device)
+    for s, e in windows(n, chunk_steps or default_chunk_steps()):
+        _encode_window(st, data, s, e)
+    return st.result()
+
+
+def cm_encode_batch(data: torch.Tensor, lengths: torch.Tensor, out_width: int | None = None):
+    """``cm_encode_resumable`` in one window over all N steps."""
+    return cm_encode_resumable(data, lengths, out_width, max(1, data.shape[1]))
+
+
+def cm_decode_stream(
+    data: torch.Tensor,
+    in_lens: torch.Tensor,
+    out_lens: torch.Tensor,
+    out_width: int,
+    chunk_steps: int | None = None,
+):
+    """Decode out_lens[k] bytes from each row of data [K, M] uint8 in
+    windows of ``chunk_steps``, yielding (start, [K, stop - start] uint8)
+    for each window in order (zero past each row's length).
+
+    Input past in_lens[k] (clamped to M) reads as -1: an exhausted
+    stream shifts in ``(code << 8) - 1`` (src/libbz3.c:346,437-440).
+    """
+    st = _DecodeState(data, in_lens, out_lens, out_width)
+    for s, e in windows(out_width, chunk_steps or default_chunk_steps()):
+        piece = torch.zeros((data.shape[0], e - s), dtype=torch.uint8, device=data.device)
+        _decode_window(st, s, e, piece, s)
+        yield s, st.unsort(piece)
+
+
+def cm_decode_resumable(
+    data: torch.Tensor,
+    in_lens: torch.Tensor,
+    out_lens: torch.Tensor,
+    out_width: int,
+    chunk_steps: int | None = None,
+) -> torch.Tensor:
+    """``cm_decode_stream`` into one [K, out_width] uint8 tensor."""
+    st = _DecodeState(data, in_lens, out_lens, out_width)
+    out = torch.zeros((data.shape[0], out_width), dtype=torch.uint8, device=data.device)
+    for s, e in windows(out_width, chunk_steps or default_chunk_steps()):
+        _decode_window(st, s, e, out, 0)
+    return st.unsort(out)
+
+
+def cm_decode_batch(
+    data: torch.Tensor, in_lens: torch.Tensor, out_lens: torch.Tensor, out_width: int
+) -> torch.Tensor:
+    """``cm_decode_resumable`` in one window over all out_width steps:
+    [K, out_width] uint8, zero past each row's length."""
+    return cm_decode_resumable(data, in_lens, out_lens, out_width, max(1, out_width))

@@ -1,14 +1,17 @@
-"""Host pre/post passes of the block pipeline: CRC32-C, RLE and LZP.
+"""Host passes of the block pipeline: CRC32-C, RLE, LZP and the BWT.
 
-Byte-serial C++ (``csrc/host_stages.cpp``) behind ctypes, on the host
-on every machine.  Semantics are the JAX package's oracles
-(``ops/ref/crc32.py``, ``rle.py``, ``lzp.py``; reference
-src/libbz3.c:37-329).
+Byte-serial C++ (``csrc/host_stages.cpp``, ``csrc/host_bwt.cpp``) behind
+ctypes, on the host on every machine.  Semantics are the JAX package's
+oracles (``ops/ref/crc32.py``, ``rle.py``, ``lzp.py``, ``bwt.py``;
+reference src/libbz3.c:37-329).  The BWT serves the oversize blocks of
+``pipeline.py``, past the device-block cap.
 """
 
 from __future__ import annotations
 
 import ctypes
+
+import numpy as np
 
 from ..build import load_host
 
@@ -33,6 +36,10 @@ def _lib() -> ctypes.CDLL:
         lib.bz3h_rle_encode.argtypes = [ctypes.c_char_p, _i, _c, _i]
         lib.bz3h_rle_decode.restype = _i
         lib.bz3h_rle_decode.argtypes = [ctypes.c_char_p, _i, _c, _i]
+        lib.bz3h_bwt_forward.restype = _i
+        lib.bz3h_bwt_forward.argtypes = [ctypes.c_char_p, _c, _i, _c]
+        lib.bz3h_bwt_inverse.restype = _i
+        lib.bz3h_bwt_inverse.argtypes = [ctypes.c_char_p, _c, _i, _i, _c, ctypes.c_int64]
         _ready = True
     return lib
 
@@ -73,3 +80,33 @@ def lzp_decode(data: bytes, max_out: int) -> bytes | None:
     lut = ctypes.create_string_buffer(LZP_LUT_BYTES)
     r = _lib().bz3h_lzp_decode(data, len(data), out, max_out, lut)
     return None if r < 0 else out.raw[:r]
+
+
+def bwt_forward(data: bytes) -> tuple[bytes, int]:
+    """SA-IS BWT: (U, primary index) with the libsais_bwt output contract
+    of the format (the JAX package's ``ops/ref/bwt.py``)."""
+    n = len(data)
+    if n <= 1:
+        return data, n
+    out = np.empty(n, np.uint8)
+    # scratch: the suffix array (n + 1 words), then the u8 BWT temp
+    scratch = np.empty(2 * (n + 16) + 16, np.int32)
+    idx = _lib().bz3h_bwt_forward(data, out.ctypes.data, n, scratch.ctypes.data)
+    if idx < 0:
+        raise RuntimeError("bwt_forward failed")
+    return out.tobytes(), idx
+
+
+def bwt_inverse(u: bytes, index: int) -> bytes | None:
+    """Inverse BWT (quad-merge LF walk); None on an index out of range."""
+    n = len(u)
+    if n <= 1:
+        return u if index == n else None
+    if index <= 0 or index > n:
+        return None
+    out = np.empty(n, np.uint8)
+    # scratch: n + 1 packed nodes, u32 below 2^24 bytes and u64 above
+    words = 2 * (n + 16)
+    scratch = np.empty(words + 16, np.int32)
+    r = _lib().bz3h_bwt_inverse(u, out.ctypes.data, n, index, scratch.ctypes.data, words)
+    return None if r < 0 else out.tobytes()

@@ -31,12 +31,26 @@ JSON line:
              ``device_prepass=True``; the stream must equal the default
              path's, with LZP and RLE each kept on some block;
 9. prepass_shapes - K4, K5 and K6 on that phase's own [8, 16 Mi] rows,
-             timed, each checked in full against the host C++.
+             timed, each checked in full against the host C++;
+10. parity_resume - K3a, K3b and K3c (the resumable CM kernels) against
+             their plain versions on CPU copies of the same rows, in
+             launches of 256 steps, byte for byte, and against K1/K2;
+11. main_b32 - the device path at -b 32: a text block and a log block
+             of 32 MiB through ``compress_file`` / ``decompress_file``,
+             CM-coded by K3a/K3b in two launches of 16 Mi steps, each
+             launch timed with CUDA events as it runs; then K1 in one
+             launch on the same rows must give the same payloads, and K3b
+             at the full width must equal the plain decoder on a prefix;
+12. main_oversize - one 144 MiB block at -b 144, past the 128 MiB
+             device-block cap: the host-BWT hybrid (host SA-IS, K3a, K3c,
+             host inverse BWT), its launches timed as they run, the host
+             SA-IS held against the device BWT, and K3a and K3c at the
+             full width against the plain coders on a prefix.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a card, or outside a checkout of the repository, it
-exits non-zero before printing any result.
+exits non-zero before printing any result.  About 12 minutes in all.
 """
 
 from __future__ import annotations
@@ -70,6 +84,12 @@ OPS_PER_BIT = 40
 # csrc/crc32_kernels.cu and csrc/lzp_kernels.cu.
 OPS_PER_CRC_BYTE = 6
 OPS_PER_LZP_STEP = 18
+# The kernels of each main path; a main phase fails if one of them did
+# not launch.
+DEFAULT_PATH = ("cm_encode", "cm_decode")
+PREPASS_PATH = ("cm_encode", "cm_decode", "crc_lanes", "lzp_encode", "lzp_decode")
+B32_PATH = ("cm_encode_resume", "cm_decode_resume")
+OVERSIZE_PATH = ("cm_encode_resume", "cm_decode_stream")
 
 
 def _require(cond, what) -> None:
@@ -318,14 +338,15 @@ def phase_golden(card: str) -> None:
     emit({"phase": "golden", "card": card, "files": res})
 
 
-def phase_main(card: str, data: bytes, bs: int, blocks: int) -> dict:
-    """The main path at full width: ``blocks`` x ``bs`` through the
-    stream API on the card."""
+def _round_trip(card: str, phase: str, data: bytes, bs: int, blocks: int, **switches):
+    """``blocks`` x ``bs`` through the stream API on a profiled engine
+    with the given pipeline switches: (engine, compressed stream, result
+    line with throughput, launches, stage times and peak memory)."""
     import torch
     from bzip3_tpu_torch import compress_file, decompress_file
     from bzip3_tpu_torch.engines import DeviceEngine
 
-    eng = DeviceEngine("cuda", profile=True)
+    eng = DeviceEngine("cuda", profile=True, **switches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -334,29 +355,48 @@ def phase_main(card: str, data: bytes, bs: int, blocks: int) -> dict:
     compress_file(io.BytesIO(data), comp, bs, engine=eng, batch_size=blocks)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
+    enc_launches = launch_counts()
     t0 = time.perf_counter()
     back = io.BytesIO()
     decompress_file(io.BytesIO(comp.getvalue()), back, engine=eng, batch_size=blocks)
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-
-    _require(back.getvalue() == data, "main path round trip differs")
-    _require(launches["cm_encode"] > 0 and launches["cm_decode"] > 0, launches)
+    _require(back.getvalue() == data, f"{phase} round trip differs")
     _require(eng.reencoded_rows == 0, eng.reencoded_rows)
     out = {
-        "phase": "main", "card": card, "block_size": bs, "blocks": blocks,
+        "phase": phase, "card": card, "block_size": bs, "blocks": blocks,
         "input_bytes": len(data), "compressed_bytes": len(comp.getvalue()),
         "ratio": len(comp.getvalue()) / len(data),
         "encode_s": enc_s, "decode_s": dec_s,
         "encode_mib_s": len(data) / MiB / enc_s,
         "decode_mib_s": len(data) / MiB / dec_s,
-        "launches": launches, "reencoded_rows": eng.reencoded_rows,
-        "peak_device_bytes": peak,
+        "launches": launch_counts(), "encode_launches": enc_launches,
+        "reencoded_rows": eng.reencoded_rows,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "stages_s": {k: round(v, 6) for k, v in eng.timer.totals.items()},
         "stage_calls": dict(eng.timer.counts),
     }
+    return eng, comp.getvalue(), out
+
+
+def _payloads(stream: bytes, bs: int) -> list[tuple]:
+    """(header, CM payload) of each block of a .bz3 stream."""
+    from bzip3_tpu_torch.container.stream import iter_chunks
+    from bzip3_tpu_torch.models.block_codec import parse_block_header
+
+    out = []
+    for _, _, block in iter_chunks(io.BytesIO(stream[9:]), bs):
+        hdr = parse_block_header(block)
+        out.append((hdr, block[hdr.header_size() :]))
+    return out
+
+
+def phase_main(card: str, data: bytes, bs: int, blocks: int) -> dict:
+    """The main path at full width: ``blocks`` x ``bs`` through the
+    stream API on the card."""
+    _, _, out = _round_trip(card, "main", data, bs, blocks)
+    launches = out["launches"]
+    _require({k for k, v in launches.items() if v} == set(DEFAULT_PATH), launches)
     emit(out)
     return out
 
@@ -372,6 +412,75 @@ def _timed(fn):
     t1.record()
     torch.cuda.synchronize()
     return res, t0.elapsed_time(t1)
+
+
+class _LaunchTimes:
+    """CUDA-event times of the launches made through the named C entry
+    points of ``cm_cuda`` while active: two events on the launching
+    stream around each launch, so a main path's own K3a-K3c launches are
+    timed as they run, with no second run and no synchronise."""
+
+    def __init__(self, *names: str):
+        self.events = {n: [] for n in names}
+
+    def __enter__(self):
+        import torch
+        from bzip3_tpu_torch.ops.device import cm_cuda
+
+        plain = cm_cuda.entry
+
+        def entry(name, *args, **kw):
+            fn = plain(name, *args, **kw)
+            if name not in self.events:
+                return fn
+
+            def timed(*a):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                rc = fn(*a)
+                t1.record()
+                self.events[name].append((t0, t1))
+                return rc
+
+            return timed
+
+        self._restore = (cm_cuda, plain)
+        cm_cuda.entry = entry
+        return self
+
+    def __exit__(self, *exc) -> None:
+        mod, plain = self._restore
+        mod.entry = plain
+
+    def ms(self, name: str) -> tuple[float, int]:
+        """(summed milliseconds, launches) of entry point ``name``."""
+        import torch
+
+        torch.cuda.synchronize()
+        ev = self.events[name]
+        return sum(t0.elapsed_time(t1) for t0, t1 in ev), len(ev)
+
+
+def _decode_prefix_err(kernel_out: np.ndarray, payload, plens, heads: list[int],
+                       prefix: int) -> tuple[int, float]:
+    """(max abs error, plain ms) of a decoder's first heads[k] <= ``prefix``
+    symbols of each row k of ``kernel_out`` against the plain decoder on
+    CPU copies of the same payloads.  A symbol is 8 binary decisions of at most 12
+    bits each (the least probability is 1/4096), so ``prefix`` symbols
+    read at most 12 * prefix + 4 payload bytes: the plain decoder gets
+    each payload's first 16 * prefix bytes."""
+    import torch
+    from bzip3_tpu_torch.ops.device import cm
+
+    cut = 16 * prefix
+    olens = torch.tensor(heads, dtype=torch.int32)
+    t0 = time.perf_counter()
+    want = cm.cm_decode_batch(payload[:, :cut].cpu().contiguous(),
+                              plens.cpu().clamp(max=cut), olens, prefix).numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(_row_diff(kernel_out[k, :h], want[k, :h]) for k, h in enumerate(heads))
+    return err, plain_ms
 
 
 def phase_main_shapes(card: str, data: bytes, bs: int, blocks: int,
@@ -611,54 +720,20 @@ def sparse_block(size: int, seed: int) -> bytes:
 def phase_main_prepass(card: str, data: bytes, bs: int, blocks: int) -> dict:
     """The device prepass chain at full width: ``blocks`` x ``bs``
     through the stream API on the card, against the default path."""
-    import torch
-    from bzip3_tpu_torch import compress_file, decompress_file
-    from bzip3_tpu_torch.container.stream import iter_chunks
+    from bzip3_tpu_torch import compress_file
     from bzip3_tpu_torch.engines import DeviceEngine
-    from bzip3_tpu_torch.models.block_codec import parse_block_header
 
-    eng = DeviceEngine("cuda", profile=True, device_prepass=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    comp = io.BytesIO()
-    compress_file(io.BytesIO(data), comp, bs, engine=eng, batch_size=blocks)
-    torch.cuda.synchronize()
-    enc_s = time.perf_counter() - t0
-    enc_launches = launch_counts()
-    t0 = time.perf_counter()
-    back = io.BytesIO()
-    decompress_file(io.BytesIO(comp.getvalue()), back, engine=eng, batch_size=blocks)
-    torch.cuda.synchronize()
-    dec_s = time.perf_counter() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-
-    _require(back.getvalue() == data, "device prepass round trip differs")
+    _, comp, out = _round_trip(card, "main_prepass", data, bs, blocks, device_prepass=True)
     default = io.BytesIO()
     compress_file(io.BytesIO(data), default, bs, engine=DeviceEngine("cuda", device_prepass=False),
                   batch_size=blocks)
-    _require(comp.getvalue() == default.getvalue(),
-             "device prepass stream differs from the default path's")
-    models = [parse_block_header(p).model
-              for _, _, p in iter_chunks(io.BytesIO(comp.getvalue()[9:]), bs)]
+    _require(comp == default.getvalue(), "device prepass stream differs from the default path's")
+    models = [hdr.model for hdr, _ in _payloads(comp, bs)]
     _require(any(m & 2 for m in models) and any(m & 4 for m in models), f"models {models}")
-    _require(all(launches[k] > 0 for k in launches), f"a kernel did not launch: {launches}")
-    _require(eng.reencoded_rows == 0, eng.reencoded_rows)
-    out = {
-        "phase": "main_prepass", "card": card, "block_size": bs, "blocks": blocks,
-        "input_bytes": len(data), "compressed_bytes": len(comp.getvalue()),
-        "ratio": len(comp.getvalue()) / len(data), "models": models,
-        "identical_to_default_path": True,
-        "encode_s": enc_s, "decode_s": dec_s,
-        "encode_mib_s": len(data) / MiB / enc_s,
-        "decode_mib_s": len(data) / MiB / dec_s,
-        "launches": launches, "encode_launches": enc_launches,
-        "reencoded_rows": eng.reencoded_rows, "peak_device_bytes": peak,
-        "stages_s": {k: round(v, 6) for k, v in eng.timer.totals.items()},
-        "stage_calls": dict(eng.timer.counts),
-    }
+    launches = out["launches"]
+    _require({k for k, v in launches.items() if v} == set(PREPASS_PATH),
+             f"launches off the chain's kernels: {launches}")
+    out.update({"models": models, "identical_to_default_path": True})
     emit(out)
     return out
 
@@ -717,12 +792,312 @@ def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int) -> dict:
     return out
 
 
+def _cm_fixture() -> list[bytes]:
+    """The 8 rows of tests/test_torch_cm.py (an empty row, a 1-byte row,
+    runs, random and text-like bytes, up to 700 bytes)."""
+    rng = np.random.default_rng(1234)
+    return [
+        bytes(rng.integers(97, 123, 300, dtype=np.uint8)),
+        bytes(rng.integers(0, 256, 513, dtype=np.uint8)),
+        b"abcabcabc" * 40,
+        b"\x00" * 200,
+        bytes(rng.integers(0, 4, 700, dtype=np.uint8)),
+        b"",
+        b"Q",
+        b"\xff" * 130,
+    ]
+
+
+def phase_parity_resume(card: str) -> dict:
+    """K3a, K3b and K3c against their plain versions on CPU copies of the
+    same rows, in launches of 256 steps, byte for byte; and against K1
+    and K2 on the card.  Rows: tests/test_torch_cm.py's 8 (one ends in
+    the first window, one is empty, others end inside later windows) and
+    an incompressible 4 KiB row over 16 launches."""
+    import torch
+    from bzip3_tpu_torch.ops.device import cm, cm_cuda
+
+    n, chunk = 4096, 256
+    rng = np.random.default_rng(21)
+    rows = _cm_fixture() + [rng.integers(0, 256, n, dtype=np.uint8).tobytes()]
+    data, lens = _pad(rows, n)
+    d_cpu, l_cpu = torch.from_numpy(data), torch.from_numpy(lens)
+    d_gpu, l_gpu = d_cpu.cuda(), l_cpu.cuda()
+    before = launch_counts()
+
+    # K3a against the plain resumable encoder, and against K1.
+    t0 = time.perf_counter()
+    p_out, p_lens = cm.cm_encode_resumable(d_cpu, l_cpu, chunk_steps=chunk)
+    k3a_plain_ms = (time.perf_counter() - t0) * 1e3
+    p_out, p_lens = p_out.numpy(), p_lens.numpy()
+    k_out, k_lens = cm_cuda.cm_encode_resumable(d_gpu, l_gpu, chunk_steps=chunk)
+    k_out, k_lens = k_out.cpu().numpy(), k_lens.cpu().numpy()
+    one_out, one_lens = (t.cpu().numpy() for t in cm_cuda.cm_encode(d_gpu, l_gpu))
+    _require((k_lens == p_lens).all() and (k_lens == one_lens).all(),
+             (k_lens.tolist(), p_lens.tolist(), one_lens.tolist()))
+    k3a_err = max(_row_diff(k_out[i, : p_lens[i]], p_out[i, : p_lens[i]]) for i in range(len(rows)))
+    _require(k3a_err == 0, "K3a differs from the plain resumable encoder")
+    _require(all((k_out[i, : p_lens[i]] == one_out[i, : p_lens[i]]).all() for i in range(len(rows))),
+             "K3a differs from K1")
+
+    # K3a with a cap under the incompressible row's payload: the true
+    # length is reported and the bytes under the cap are exact.
+    cap = 3072
+    c_out, c_lens = cm_cuda.cm_encode_resumable(d_gpu, l_gpu, cap, chunk_steps=chunk)
+    c_out, c_lens = c_out.cpu().numpy(), c_lens.cpu().numpy()
+    _require((c_lens == p_lens).all() and int(c_lens[-1]) > cap, f"capped K3a {c_lens.tolist()}")
+    for i in range(len(rows)):
+        m = min(int(p_lens[i]), cap)
+        _require(_row_diff(c_out[i, :m], p_out[i, :m]) == 0, f"capped K3a row {i}")
+
+    # K3b and K3c on the payloads, the incompressible one cut in half: its
+    # input runs out in the eighth launch of sixteen.
+    pays = [p_out[i, : p_lens[i]].tobytes() for i in range(len(rows))]
+    pays[-1] = pays[-1][: len(pays[-1]) // 2]
+    pdata, plens = _pad(pays, int(p_lens.max()))
+    pd_cpu, pl_cpu = torch.from_numpy(pdata), torch.from_numpy(plens)
+    pd_gpu, pl_gpu = pd_cpu.cuda(), pl_cpu.cuda()
+    t0 = time.perf_counter()
+    p_dec = cm.cm_decode_resumable(pd_cpu, pl_cpu, l_cpu, n, chunk).numpy()
+    k3b_plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    p_pieces = list(cm.cm_decode_stream(pd_cpu, pl_cpu, l_cpu, n, chunk))
+    k3c_plain_ms = (time.perf_counter() - t0) * 1e3
+    k_dec = cm_cuda.cm_decode_resumable(pd_gpu, pl_gpu, l_gpu, n, chunk).cpu().numpy()
+    k_pieces = [(s0, p.cpu().numpy())
+                for s0, p in cm_cuda.cm_decode_stream(pd_gpu, pl_gpu, l_gpu, n, chunk)]
+    two = cm_cuda.cm_decode(pd_gpu, pl_gpu, l_gpu, n).cpu().numpy()
+    _require([s0 for s0, _ in k_pieces] == [s0 for s0, _ in p_pieces] == list(range(0, n, chunk)),
+             "K3c pieces")
+    k3b_err = max(_row_diff(k_dec[i, : lens[i]], p_dec[i, : lens[i]]) for i in range(len(rows)))
+    k3c_err = 0
+    for (s0, kp), (_, pp) in zip(k_pieces, p_pieces):
+        for i in range(len(rows)):
+            m = max(0, min(int(lens[i]) - s0, kp.shape[1]))
+            k3c_err = max(k3c_err, _row_diff(kp[i, :m], pp[i, :m].numpy()))
+            _require((kp[i, :m] == two[i, s0 : s0 + m]).all(), f"K3c differs from K2, row {i}")
+    _require(k3b_err == 0, "K3b differs from the plain resumable decoder")
+    _require(k3c_err == 0, "K3c differs from the plain stream decoder")
+    for i in range(len(rows)):
+        _require((k_dec[i, : lens[i]] == two[i, : lens[i]]).all(), f"K3b differs from K2, row {i}")
+        if i != len(rows) - 1:
+            _require(k_dec[i, : lens[i]].tobytes() == rows[i], f"row {i} round trip")
+    k3_ms = {
+        "k3a": _cuda_ms(lambda: cm_cuda.cm_encode_resumable(d_gpu, l_gpu, chunk_steps=chunk), 3),
+        "k3b": _cuda_ms(
+            lambda: cm_cuda.cm_decode_resumable(pd_gpu, pl_gpu, l_gpu, n, chunk), 3),
+        "k3c": _cuda_ms(
+            lambda: list(cm_cuda.cm_decode_stream(pd_gpu, pl_gpu, l_gpu, n, chunk)), 3),
+    }
+    plain = {"k3a": k3a_plain_ms, "k3b": k3b_plain_ms, "k3c": k3c_plain_ms}
+    errs = {"k3a": k3a_err, "k3b": k3b_err, "k3c": k3c_err}
+    out = {
+        "phase": "parity_resume", "card": card, "rows": len(rows), "width": n,
+        "chunk_steps": chunk, "launches_per_call": n // chunk, "tolerance": 0,
+        "payload_lens": p_lens.tolist(), "capped_lens": c_lens.tolist(), "cap": cap,
+        "equal_to_k1_k2": True,
+        **{k: {"max_abs_err": errs[k], "ms": k3_ms[k], "plain_ms": plain[k],
+               "plain_device": "cpu"} for k in plain},
+        "parity_launches": {k: v - before[k] for k, v in launch_counts().items() if v != before[k]},
+    }
+    emit(out)
+    return out
+
+
+def phase_main_b32(card: str, data: bytes, prefix: int = 2048) -> dict:
+    """The device path at -b 32: 2 blocks of 32 MiB (text, log lines)
+    whose CM rows are past one launch chunk, so K3a and K3b code them in
+    two launches of 16 Mi steps, each launch timed as it runs.  Then K1
+    in one launch on the same BWT rows must write the payloads of the
+    stream, and K3b at the full width, on those payloads, must equal the
+    plain decoder on every row's first ``prefix`` symbols."""
+    import torch
+    from bzip3_tpu_torch.ops.device import cm_cuda
+    from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch
+    from bzip3_tpu_torch.pipeline import host_prepass
+
+    bs, blocks = 32 * MiB, 2
+    with _LaunchTimes("bz3t_cm_encode_resume", "bz3t_cm_decode_resume") as lt:
+        _, comp, out = _round_trip(card, "main_b32", data, bs, blocks)
+    launches = out["launches"]
+    _require({k for k, v in launches.items() if v} == set(B32_PATH)
+             and launches["cm_encode_resume"] == launches["cm_decode_resume"] == 2, launches)
+    (k3a_ms, na), (k3b_ms, nb) = lt.ms("bz3t_cm_encode_resume"), lt.ms("bz3t_cm_decode_resume")
+    _require(na == nb == 2, f"timed {na} K3a and {nb} K3b launches")
+
+    rows = [host_prepass(data[i * bs : (i + 1) * bs])[3] for i in range(blocks)]
+    width = -(-max(map(len, rows)) // 256) * 256
+    arr, lens = _pad(rows, width)
+    l_gpu = torch.from_numpy(lens).cuda()
+    u, idx = bwt_forward_batch(torch.from_numpy(arr).cuda(), l_gpu)
+    before = cm_cuda.LAUNCHES["cm_encode"]
+    # a launch chunk as wide as the rows: K1 in one launch
+    (payload, plens), k1_ms = _timed(lambda: cm_cuda.cm_encode(u, l_gpu, chunk_steps=width))
+    _require(cm_cuda.LAUNCHES["cm_encode"] == before + 1, "K1 did not launch")
+    pl, idx = plens.cpu().tolist(), idx.cpu().tolist()
+    k1_pay = payload.cpu().numpy()
+    # (with batch_size 2 the stream ends in an empty block, src/main.c:351-362)
+    for j, (hdr, pay) in enumerate(_payloads(comp, bs)[:blocks]):
+        _require(hdr.bwt_idx == idx[j] and len(pay) == pl[j]
+                 and k1_pay[j, : pl[j]].tobytes() == pay, f"K1 and K3a differ on block {j}")
+    # K3b at the full width (two launches of 16 Mi steps), rows cut to
+    # their first symbols, against the plain decoder on the same payloads
+    head = l_gpu.clamp(max=prefix)
+    hl = head.cpu().tolist()
+    dec = cm_cuda.cm_decode_resumable(payload, plens, head, width)[:, :prefix].cpu().numpy()
+    k3b_err, k3b_plain_ms = _decode_prefix_err(dec, payload, plens, hl, prefix)
+    _require(k3b_err == 0, "K3b differs from the plain decoder at the main path's shapes")
+    u_head = u[:, :prefix].cpu().numpy()
+    _require(all((dec[j, : hl[j]] == u_head[j, : hl[j]]).all() for j in range(blocks)),
+             "K3b does not give back the rows' first symbols")
+    out.update({
+        "shape": [blocks, width], "row_lens": lens.tolist(), "payload_lens": pl,
+        "k3a_equal_k1": True, "k1_one_launch_ms": k1_ms,
+        "k3a_ms": k3a_ms, "k3b_ms": k3b_ms, "timing": "CUDA events around each launch",
+        "prefix": prefix, "k3b_prefix_max_abs_err": k3b_err, "k3b_plain_prefix_ms": k3b_plain_ms,
+    })
+    emit(out)
+    return out
+
+
+def phase_main_oversize(card: str, data: bytes, prefix: int = 2048) -> dict:
+    """One block of len(data) bytes, past the 128 MiB device-block cap,
+    through the stream API: the host-BWT hybrid with K3a and K3c, each
+    launch timed as it runs.  The host SA-IS is held against the device
+    BWT on the block's own post-prepass row; K3a's payload and K3c's
+    output at the full width against the plain encoder and decoder on
+    the row's first ``prefix`` symbols."""
+    import torch
+    from bzip3_tpu_torch.ops import host
+    from bzip3_tpu_torch.ops.device import cm, cm_cuda
+    from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch
+    from bzip3_tpu_torch.pipeline import host_prepass
+
+    bs = len(data)
+    _require(os.environ.get("BZ3_TPU_FORCE_OVERSIZE", "0") != "1", "oversize forced")
+    with _LaunchTimes("bz3t_cm_encode_resume", "bz3t_cm_decode_resume") as lt:
+        eng, comp, out = _round_trip(card, "main_oversize", data, bs, 1)
+    _require(eng._pipe(bs).oversize, "the pipeline did not take the oversize path")
+    _require(out["stage_calls"].get("decode/crc_verify") == 1, "the CRC was not checked")
+    [(hdr, pay)] = _payloads(comp, bs)
+    _require(hdr.model & 2, f"LZP not kept: model {hdr.model}")
+
+    model, _, _, cur = host_prepass(data)
+    n = len(cur)
+    launches = out["launches"]
+    want = -(-n // cm.default_chunk_steps())
+    _require({k for k, v in launches.items() if v} == set(OVERSIZE_PATH)
+             and launches["cm_encode_resume"] == launches["cm_decode_stream"] == want,
+             f"launches {launches}, want {want} of K3a and K3c")
+    (k3a_ms, na), (k3c_ms, nc) = lt.ms("bz3t_cm_encode_resume"), lt.ms("bz3t_cm_decode_resume")
+    _require(na == nc == want, f"timed {na} K3a and {nc} K3c launches, want {want}")
+    t0 = time.perf_counter()
+    u, idx = host.bwt_forward(cur)
+    sais_s = time.perf_counter() - t0
+    _require(idx == hdr.bwt_idx, "host SA-IS index differs from the stream's")
+    torch.cuda.reset_peak_memory_stats()
+    row = torch.from_numpy(np.frombuffer(cur, np.uint8).copy())[None].cuda()
+    t0 = time.perf_counter()
+    du, didx = bwt_forward_batch(row, torch.tensor([n], dtype=torch.int32).cuda())
+    torch.cuda.synchronize()
+    device_bwt_s = time.perf_counter() - t0
+    _require(int(didx[0]) == idx and du[0, :n].cpu().numpy().tobytes() == u,
+             "host SA-IS differs from the device BWT")
+    bwt_peak = torch.cuda.max_memory_allocated()
+    del row, du
+
+    head = torch.from_numpy(np.frombuffer(u[:prefix], np.uint8).copy())[None]
+    t0 = time.perf_counter()
+    p_out, p_len = cm.cm_encode_batch(head, torch.tensor([prefix], dtype=torch.int32))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    m = int(p_len[0]) - 4  # all but the flush
+    err = _row_diff(np.frombuffer(pay[:m], np.uint8), p_out[0, :m].numpy())
+    _require(err == 0, "K3a differs from the plain encoder on the oversize row's prefix")
+
+    # K3c on the stream's payload at the full width, the row cut to its
+    # first symbols: the first piece against the plain decoder
+    d_pay = torch.from_numpy(np.frombuffer(pay, np.uint8).copy())[None].cuda()
+    d_plen = torch.tensor([len(pay)], dtype=torch.int32).cuda()
+    h = min(n, prefix, cm.default_chunk_steps())  # inside the first piece
+    head = torch.tensor([h], dtype=torch.int32).cuda()
+    pieces = list(cm_cuda.cm_decode_stream(d_pay, d_plen, head, n))
+    _require(len(pieces) == want and pieces[0][0] == 0, "K3c pieces")
+    dec = pieces[0][1][:, :h].cpu().numpy()
+    k3c_err, k3c_plain_ms = _decode_prefix_err(dec, d_pay, d_plen, [h], h)
+    _require(k3c_err == 0, "K3c differs from the plain decoder on the oversize row's prefix")
+    _require(dec[0].tobytes() == u[:h], "K3c does not give back the row's first symbols")
+    del pieces, d_pay
+    out.update({
+        "block_mib": bs / MiB, "oversize": True, "model": hdr.model, "post_prepass_len": n,
+        "payload_len": len(pay), "launches_wanted": want, "host_sais_s": sais_s,
+        "host_inverse_s": out["stages_s"]["decode/bwt"], "device_bwt_s": device_bwt_s,
+        "device_bwt_peak_bytes": bwt_peak, "sais_equal_device_bwt": True,
+        "prefix": prefix, "k3a_prefix_max_abs_err": err, "k3a_plain_prefix_ms": plain_ms,
+        "k3c_prefix_max_abs_err": k3c_err, "k3c_plain_prefix_ms": k3c_plain_ms,
+        "k3a_ms": k3a_ms, "k3c_ms": k3c_ms, "timing": "CUDA events around each launch",
+    })
+    emit(out)
+    return out
+
+
+def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict]:
+    """K3a-K3c: times at [2, 32 Mi] (K3a, K3b; main_b32's own launches)
+    and at the oversize row (K3c), launches from those phases.  Beside the
+    contract's bound: the serial bound (the longest row's bit steps at
+    K1's or K2's measured step latency) and the state spill, each launch
+    after the first loading and each launch before the last storing the
+    rows' tables and registers."""
+    from bzip3_tpu_torch.ops.device.launch import I64, entry
+
+    state = entry("bz3t_cm_state_bytes", [], I64)()
+    ns = parity["k2_k1_1MiB"]
+    # each held against its plain version at the main paths' shapes too
+    prefix_err = {"K3a": over["k3a_prefix_max_abs_err"], "K3b": b32["k3b_prefix_max_abs_err"],
+                  "K3c": over["k3c_prefix_max_abs_err"]}
+    rows = []
+    for kid, key, fn, replaces, ph, ins, outs, ns_bit in (
+        ("K3a", "cm_encode_resume", "cm_encode_resume_kernel",
+         "bzip3_tpu/ops/device/cm_pallas.py:1883", b32, b32["row_lens"], b32["payload_lens"],
+         ns["k1_ns_per_bit"]),
+        ("K3b", "cm_decode_resume", "cm_decode_resume_kernel",
+         "bzip3_tpu/ops/device/cm_pallas.py:1029", b32, b32["payload_lens"], b32["row_lens"],
+         ns["k2_ns_per_bit"]),
+        ("K3c", "cm_decode_stream", "cm_decode_resume_kernel (out_rel)",
+         "bzip3_tpu/ops/device/cm_pallas.py:1100", over, [over["payload_len"]],
+         [over["post_prepass_len"]], ns["k2_ns_per_bit"]),
+    ):
+        k = kid.lower()
+        steps = outs if kid != "K3a" else ins
+        launches = ph["launches"][key]
+        bound_ms, bound_by = _bound(sum(ins) + sum(outs) + 8 * len(ins),
+                                    OPS_PER_BIT * 8 * sum(steps))
+        spill = 2 * (launches - 1) * len(ins) * state
+        rows.append({
+            "name": f"{kid} {fn}", "route": "cuda",
+            "source": "bzip3_tpu_torch/csrc/cm_kernels.cu", "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(resume[k]["max_abs_err"], prefix_err[kid]),
+            "ms": ph[f"{k}_ms"], "plain_ms": resume[k]["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": [len(ins), max(steps)],
+            "plain_shape": [resume["rows"], resume["width"]],
+            "plain_device": resume[k]["plain_device"],
+            "kernel_ms_at_plain_shape": resume[k]["ms"],
+            "serial_bound_ms": 8 * max(steps) * ns_bit * 1e-6,
+            "spill_bytes": spill, "spill_bound_ms": spill / PEAK_BYTES_PER_S * 1e3,
+        })
+    rows[0]["launches_oversize"] = over["launches"]["cm_encode_resume"]
+    rows[0]["ms_oversize"] = over["k3a_ms"]
+    return rows
+
+
 def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: dict,
-                 pshapes: dict) -> dict:
+                 pshapes: dict, resume: dict, b32: dict, over: dict) -> dict:
     """The kernels of the main paths: launches from the main phases
-    (K1/K2 from the default path, K4-K6 from the device prepass chain),
-    times at their rows, plain times from the parity phases (the plain
-    CM coder takes ~0.2 ms a bit step: hours at 16 MiB)."""
+    (K1/K2 from the default path, K4-K6 from the device prepass chain,
+    K3a-K3c from main_b32 and main_oversize), times at their rows, plain
+    times from the parity phases (the plain CM coder takes ~0.1 ms a bit
+    step: hours at 16 MiB)."""
     ins, pays = shapes["row_lens"], shapes["payload_lens"]
     rows = []
     for kid, key, fn, src_line in (
@@ -789,6 +1164,7 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
             "serial_bound_ms": serial_ms,
             "ns_per_step_one_row": pparity[k]["step_ns"],
         })
+    rows[2:2] = _resume_rows(parity, resume, b32, over)
     return {"kernels": rows}
 
 
@@ -821,7 +1197,11 @@ def main() -> int:
     pdata = data[: 4 * bs] + log_corpus(3 * bs, seed=1) + sparse_block(bs, seed=2)
     pmain = phase_main_prepass(smi, pdata, bs, blocks)
     pshapes = phase_prepass_shapes(smi, pdata, bs, blocks)
-    emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes))
+    resume = phase_parity_resume(smi)
+    log = pdata[4 * bs : 7 * bs]  # 48 MiB of log lines
+    b32 = phase_main_b32(smi, data[: 2 * bs] + log[: 2 * bs])
+    over = phase_main_oversize(smi, data[: 6 * bs] + log)
+    emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

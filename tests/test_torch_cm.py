@@ -124,7 +124,7 @@ def test_wrappers_take_plain_path_for_cpu_tensors(blocks, encoded):
     for j, i in enumerate(rows):
         assert out[j, : olens[j]].numpy().tobytes() == encoded[i]
         assert dec[j, : lens[j]].numpy().tobytes() == blocks[i]
-    assert cm_cuda.LAUNCHES == {"cm_encode": 0, "cm_decode": 0}
+    assert not any(cm_cuda.LAUNCHES.values())
 
 
 @pytest.mark.parametrize(

@@ -1,5 +1,6 @@
-"""The port's host passes (``ops/host``: CRC32-C, RLE, LZP in its own
-C++) against the oracles of ``ops/ref``, byte for byte.
+"""The port's host passes (``ops/host``: CRC32-C, RLE, LZP and the BWT
+in its own C++) against the oracles of ``ops/ref``, byte for byte, and
+its BWT against the native runtime's (``ops/native``).
 
 The LZP cases target the format's quirks: the ``heur`` rejection, the
 word-granular match extension with its 0..3-byte tail, base-254 match
@@ -10,6 +11,8 @@ minimum and the output cap.
 import numpy as np
 import pytest
 
+from bzip3_tpu.ops import native
+from bzip3_tpu.ops.ref import bwt as ref_bwt
 from bzip3_tpu.ops.ref import crc32, lzp_decode, lzp_encode, rle_decode, rle_encode
 from bzip3_tpu.ops.ref.lzp import MATCH
 from bzip3_tpu_torch.ops import host
@@ -71,3 +74,30 @@ def test_malformed_streams_match_oracle():
     assert MATCH in e
     cut = e[: e.index(bytes([MATCH])) + 1]  # stream ends right after a match token
     assert host.lzp_decode(cut, 4096) == lzp_decode(cut, 4096)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_host_bwt_matches_native_and_oracle(name):
+    data = CASES[name]
+    u, idx = host.bwt_forward(data)
+    assert (u, idx) == native.bwt_forward(data) == ref_bwt.bwt_forward(data)
+    assert host.bwt_inverse(u, idx) == data == native.bwt_inverse(u, idx)
+
+
+def test_host_bwt_large_block_paths():
+    """Past 2^18 bytes the inverse composes four LF steps a node (the
+    quad merge); the forward recursion runs on a 3-letter alphabet."""
+    data = RNG.integers(0, 3, (1 << 18) + 777, dtype=np.uint8).tobytes()
+    u, idx = host.bwt_forward(data)
+    assert (u, idx) == native.bwt_forward(data)
+    assert host.bwt_inverse(u, idx) == data
+
+
+def test_host_bwt_inverse_rejects_an_index_out_of_range():
+    u, idx = host.bwt_forward(TEXT)
+    for bad in (0, -1, len(TEXT) + 1):
+        assert host.bwt_inverse(u, bad) is None
+        assert native.bwt_inverse(u, bad) is None
+    assert host.bwt_inverse(b"", 1) is None
+    assert host.bwt_inverse(b"q", 0) is None
+    assert host.bwt_inverse(b"q", 1) == b"q"

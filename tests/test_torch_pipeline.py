@@ -3,9 +3,14 @@ package's ``DevicePipeline`` on the blocks of ``test_pipeline.py``.
 
 Both produce BZ3v1 block bytes; they must be identical, and each must
 decode the other's, on the default path and on the device prepass chain
-(``BZ3_TPU_DEVICE_PREPASS=1`` in the JAX package).  The port's entry
-points run on the card by default, so without one they must raise
-rather than use the CPU.
+(``BZ3_TPU_DEVICE_PREPASS=1`` in the JAX package).  The JAX package runs
+once, through its full chain (``jax_full``): its blocks equal its default
+path's (``tests/test_pipeline.py`` pins both to the oracle codec), so its
+encode and its decode of the port's blocks serve every comparison.  The
+port's entry points run on the card by default, so without one they must
+raise rather than use the CPU.  The oversize route (host BWT, resumable
+CM) is forced at a tiny cap, as ``tests/test_pipeline.py`` forces the
+JAX package's.
 """
 
 import io
@@ -14,10 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from bzip3_tpu.models.block_codec import encode_block
 from bzip3_tpu.pipeline import DevicePipeline as JaxPipeline
 from bzip3_tpu_torch import compress, compress_file, decompress, decompress_file
 from bzip3_tpu_torch.engines import DeviceEngine
 from bzip3_tpu_torch.errors import BZ3_ERR_CRC, Bz3Error
+from bzip3_tpu_torch.pipeline import DevicePipeline
 from bzip3_tpu_torch.models.block_codec import parse_block_header
 
 BS = 1024
@@ -49,8 +56,21 @@ def port_blocks(engine, blocks):
 
 
 @pytest.fixture(scope="module")
-def jax_blocks(blocks):
-    return JaxPipeline(BS).encode_blocks(blocks)
+def jax_full(blocks, port_blocks):
+    """The JAX full-device chain once: its encode of the blocks, and its
+    decode of the port's blocks."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BZ3_TPU_DEVICE_PREPASS", "1")
+        pipe = JaxPipeline(BS)
+        assert pipe._full_cores()
+        enc = pipe.encode_blocks(blocks)
+        dec = pipe.decode_blocks([(e, len(b)) for e, b in zip(port_blocks, blocks)])
+    return enc, dec
+
+
+@pytest.fixture(scope="module")
+def jax_blocks(jax_full):
+    return jax_full[0]
 
 
 def test_port_encodes_like_jax(port_blocks, jax_blocks, engine):
@@ -63,9 +83,8 @@ def test_port_decodes_jax_blocks(engine, jax_blocks, blocks):
     assert engine.decode_blocks(pairs, BS) == blocks
 
 
-def test_jax_decodes_port_blocks(port_blocks, blocks):
-    pairs = [(e, len(b)) for e, b in zip(port_blocks, blocks)]
-    assert JaxPipeline(BS).decode_blocks(pairs) == blocks
+def test_jax_decodes_port_blocks(jax_full, blocks):
+    assert jax_full[1] == blocks
 
 
 def test_corrupted_crc_raises(engine, port_blocks, blocks):
@@ -129,19 +148,6 @@ def prepass_blocks(prepass_engine, blocks):
     return prepass_engine.encode_blocks(blocks, BS)
 
 
-@pytest.fixture(scope="module")
-def jax_full(blocks, prepass_blocks):
-    """The JAX full-device chain once: its encode of the blocks, and its
-    decode of the port's device-prepass blocks."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("BZ3_TPU_DEVICE_PREPASS", "1")
-        pipe = JaxPipeline(BS)
-        assert pipe._full_cores()
-        enc = pipe.encode_blocks(blocks)
-        dec = pipe.decode_blocks([(e, len(b)) for e, b in zip(prepass_blocks, blocks)])
-    return enc, dec
-
-
 def test_device_prepass_matches_jax_full_chain(
     prepass_engine, prepass_blocks, port_blocks, jax_full, blocks
 ):
@@ -149,7 +155,7 @@ def test_device_prepass_matches_jax_full_chain(
     assert prepass_blocks == jax_enc == port_blocks
     models = {parse_block_header(b).model for b in prepass_blocks}
     assert {2, 4} <= {m & 6 for m in models}  # LZP and RLE each kept somewhere
-    assert jax_dec == blocks
+    assert jax_dec == blocks  # the JAX chain's decode of these same blocks
     assert prepass_engine.decode_blocks([(e, len(b)) for e, b in zip(jax_enc, blocks)], BS) == blocks
     assert prepass_engine.reencoded_rows == 0
 
@@ -175,3 +181,44 @@ def test_device_prepass_corrupted_lzp_payload_raises(prepass_engine, prepass_blo
     with pytest.raises(Bz3Error) as err:
         prepass_engine.decode_blocks([(bytes(bad), len(blocks[i]))], BS)
     assert err.value.code == BZ3_ERR_CRC
+
+
+@pytest.fixture(scope="module")
+def oversize(text_data):
+    """The forced oversize route at 1 KiB blocks (tests/test_pipeline.py's
+    cases), its blocks and their decode."""
+    rng = np.random.default_rng(11)
+    cases = [
+        text_data[:BS],
+        b"ab" * (BS // 2),
+        b"x" * 40,  # literal path
+        bytes(rng.integers(0, 256, BS, dtype=np.uint8)),
+        text_data[BS : BS + 700],
+    ]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BZ3_TPU_MAX_DEVICE_BLOCK_MIB", "0.0005")
+        mp.setenv("BZ3_TPU_FORCE_OVERSIZE", "1")
+        pipe = DevicePipeline(BS, device="cpu")
+        enc = pipe.encode_blocks(cases)
+        dec = pipe.decode_blocks([(e, len(b)) for e, b in zip(enc, cases)])
+    return pipe, cases, enc, dec
+
+
+def test_oversize_route_matches_the_oracle_codec(oversize):
+    pipe, cases, enc, dec = oversize
+    assert pipe.oversize
+    assert enc == [encode_block(b) for b in cases]
+    assert dec == cases
+    assert pipe.reencoded_rows == 0
+    assert not DevicePipeline(BS, device="cpu").oversize  # only when forced off the card
+
+
+def test_oversize_corrupted_payload_raises(oversize):
+    pipe, cases, enc, _ = oversize
+    i = 1  # the LZP-coded block, whose CM payload is a few dozen bytes
+    hdr = parse_block_header(enc[i])
+    bad = bytearray(enc[i])
+    for k in range(hdr.header_size() + 2, len(bad), 5):
+        bad[k] ^= 0x5A
+    with pytest.raises(Bz3Error):
+        pipe.decode_blocks([(bytes(bad), len(cases[i]))])
