@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import glob
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -151,3 +152,44 @@ def kernel_build_log() -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+def kernel_name(mangled: str) -> str:
+    """The plain name of a kernel from its mangled one: the last of the
+    length-prefixed names after ``_Z``/``_ZN`` (``_ZN46_GLOBAL__N__..._cu_
+    8a0719b516cm_encode_kernelE...`` -> ``cm_encode_kernel``)."""
+    m = re.match(r"_ZN?", mangled)
+    if m is None:
+        return mangled
+    i, name = m.end(), mangled
+    while (d := re.match(r"\d+", mangled[i:])) is not None:
+        i += d.end()
+        name = mangled[i : i + int(d.group())]
+        i += int(d.group())
+        if not m.group().endswith("N"):
+            break
+    return name
+
+
+def kernel_resources(log: str | None = None) -> dict[str, dict[str, int]]:
+    """{kernel: {registers, smem, spill_stores, spill_loads}} of each
+    ``__global__`` function, from the ``-Xptxas -v`` lines of a build log
+    (default: the last kernel build's).  ``smem`` is static shared
+    memory; the kernels' tables are dynamic."""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for ln in (kernel_build_log() if log is None else log).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = out.setdefault(kernel_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            s = re.search(r"(\d+) bytes smem", ln)
+            cur.update(registers=int(m.group(1)), smem=int(s.group(1)) if s else 0)
+    return out

@@ -14,7 +14,11 @@ Model state per row (``state`` in src/libbz3.c:333-342):
 
 Range state is int64 masked to 32 bits.  The range split
 ``((high - low) * (ssep * 3 + p)) >> 18`` is one int64 product: the
-operands are below 2^32 and 2^18.
+operands are below 2^32 and 2^18.  The renorm after a bit takes its
+byte count in closed form (``renorm_count``) and shifts once, as the
+kernels do; the decoder shifts in that many code bytes from a window of
+the next 32 payload bytes gathered at the byte's start (a bit takes at
+most 4).
 
 A coder is a state object (``_EncodeState``, ``_DecodeState``) and a
 function that runs its rows over the steps (bytes) ``[start, stop)``
@@ -34,7 +38,6 @@ import os
 
 import torch
 
-TOP = 1 << 24
 M32 = 0xFFFFFFFF
 C0_SIZE = 256
 C1_SIZE = 256 * 256
@@ -53,6 +56,21 @@ def windows(n: int, chunk_steps: int) -> list[tuple[int, int]]:
     if chunk_steps <= 0:
         raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
     return [(s, min(s + chunk_steps, n)) for s in range(0, n, chunk_steps)] or [(0, 0)]
+
+
+def renorm_count(low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
+    """Bytes the coder shifts out after a bit: the count of leading zero
+    bytes of the 32-bit ``low ^ high``, 4 when they are equal.  The
+    reference's renorm loop (src/libbz3.c:331-494) runs while the top
+    byte of ``low ^ high`` is 0, and each turn shifts its next byte up."""
+    lims = torch.tensor([1 << 24, 1 << 16, 1 << 8, 1], device=low.device)
+    return ((low ^ high).unsqueeze(-1) < lims).sum(-1)
+
+
+def _renorm(low, high, k):
+    """low << 8k and (high << 8k) | (2^8k - 1), to 32 bits."""
+    sh = k << 3
+    return (low << sh) & M32, (((high + 1) << sh) - 1) & M32
 
 
 def cm_fresh_tables(k_dim: int, device=None):
@@ -178,18 +196,19 @@ def _encode_window(st: _EncodeState, data: torch.Tensor, start: int, stop: int) 
     orow = st.orow[:k]
     model.keep(k)
     x = data.index_select(0, st.order[:k])[:, start:stop].long()
+    j = torch.arange(4, device=x.device)[:, None, None]
 
-    def emit(byte, orow, optr, do=None):
-        ok = optr < w if do is None else do & (optr < w)
-        out[orow + torch.where(ok, optr, w)] = byte.to(torch.uint8)
-        return optr + 1 if do is None else optr + do.long()
+    def emit(lows, counts, orow, optr):
+        """Bits t of one byte shifted counts[t] bytes out of lows[t]
+        ([T, k]); writes past w go to the sink column."""
+        pos = optr + counts.cumsum(0) - counts + j  # [4, T, k]
+        ok = (j < counts) & (pos < w)
+        out[orow + torch.where(ok, pos, w)] = ((lows >> (24 - 8 * j)) & 0xFF).to(torch.uint8)
+        return optr + counts.sum(0)
 
     def flush(lo: int, hi: int):  # src/libbz3.c:426-433
-        lw, op = low[lo:hi], optr[lo:hi]
-        for _ in range(4):
-            op = emit(lw >> 24, orow[lo:hi], op)
-            lw = (lw << 8) & M32
-        st.out_lens[lo:hi] = op
+        lw = low[None, lo:hi]
+        st.out_lens[lo:hi] = emit(lw, torch.full_like(lw, 4), orow[lo:hi], optr[lo:hi])
 
     for i in range(start, min(stop, ends[0])):
         if ends[k - 1] <= i:  # rows that are done leave the batch
@@ -203,24 +222,35 @@ def _encode_window(st: _EncodeState, data: torch.Tensor, start: int, stop: int) 
         run = torch.where(c1 == c2, run + 1, 0)
         ctx, bits = _byte_path(c)
         scale, state = model.predict(c1, c2, (run > 2).long(), ctx)
+        lows, counts = [], []
         for t in range(8):
             bit = bits[t]
             mid = low + (((high - low) * scale[t]) >> 18)
             high = torch.where(bit, mid, high)
             low = torch.where(bit, low, mid + 1)
-            for _ in range(4):  # renorm: at most 4 bytes per bit
-                do = (low ^ high) < TOP
-                if not bool(do.any()):
-                    break
-                optr = emit(low >> 24, orow, optr, do)
-                low = torch.where(do, (low << 8) & M32, low)
-                high = torch.where(do, ((high << 8) & M32) | 0xFF, high)
+            n_out = renorm_count(low, high)
+            lows.append(low)
+            counts.append(n_out)
+            low, high = _renorm(low, high, n_out)
+        optr = emit(torch.stack(lows), torch.stack(counts), orow, optr)
         model.update(state, bits)
         c2 = c1
         c1 = c
     live = sum(e > stop for e in ends[:k])
     flush(live, k)
     st.regs[:, :live] = torch.stack([low, high, optr, c1, c2, run])[:, :live]
+
+
+def shift_in(code, k, w, ip, inl):
+    """code shifted left by k bytes with code bytes ip..ip+k-1 shifted
+    in; w is the big-endian word of bytes ip..ip+3, 0 past the row's
+    input ``inl``.  A byte past the input adds -1 instead
+    (src/libbz3.c:346,437-440): for the last m of the k bytes that takes
+    0x01..01 (m bytes of 1) off what the zero bytes give."""
+    sh = k << 3
+    m = (ip + k - inl).clamp(min=0).minimum(k)
+    ones = torch.full_like(m, 0x01010101) >> (32 - 8 * m)
+    return ((code << sh) + (w >> (32 - sh)) - ones) & M32
 
 
 class _DecodeState:
@@ -245,16 +275,20 @@ class _DecodeState:
         self.model = _Model(k_dim, dev)
         self.regs = torch.zeros((7, k_dim), dtype=torch.int64, device=dev)
         self.regs[1] = M32
-        code, ip = self.regs[2], self.regs[3]
-        for _ in range(4):
-            code = ((code << 8) + self.read(ip, self.irow, self.inl)) & M32
-            ip = ip + 1
-        self.regs[2], self.regs[3] = code, ip
+        code, ip = self.regs[2], self.regs[3]  # 0, 0
+        four = torch.full_like(ip, 4)
+        w = self.words(ip, self.irow, self.inl)[:, 0]
+        self.regs[2] = shift_in(code, four, w, ip, self.inl)  # the first four code bytes
+        self.regs[3] = four
 
-    def read(self, ip, irow, inl):
-        """The next code byte of each row; -1 past its input (src/libbz3.c:346,437-440)."""
-        byte = self.flat[irow + ip.clamp(max=self.m)].long()
-        return torch.where(ip < inl, byte, M32)
+    def words(self, ip, irow, inl):
+        """[k, 29]: the big-endian 4-byte words at code bytes ip + o of
+        each row, o < 29, with bytes past the row's input 0.  A byte's 8
+        bits shift in at most 32 bytes, so o stays under 29."""
+        idx = ip[:, None] + torch.arange(32, device=ip.device)
+        b = self.flat[irow[:, None] + idx.clamp(max=self.m)].long()
+        b = torch.where(idx < inl[:, None], b, 0)
+        return (b[:, :29] << 24) | (b[:, 1:30] << 16) | (b[:, 2:31] << 8) | b[:, 3:32]
 
     def unsort(self, out: torch.Tensor) -> torch.Tensor:
         res = torch.empty_like(out)
@@ -283,20 +317,17 @@ def _decode_window(st: _DecodeState, start: int, stop: int, out: torch.Tensor, b
         f = (run > 2).long()
         scale, _ = model.predict(c1, c2, f, model.nodes)  # [256, k]
         ctx = torch.ones((1, k), dtype=torch.int64, device=dev)
+        words, ip0 = st.words(ip, irow, inl), ip
         for _t in range(8):
             mid = low + (((high - low) * scale.gather(0, ctx)[0]) >> 18)
             bit = code <= mid
             high = torch.where(bit, mid, high)
             low = torch.where(bit, low, mid + 1)
-            for _ in range(4):
-                do = (low ^ high) < TOP
-                if not bool(do.any()):
-                    break
-                byte = st.read(ip, irow, inl)
-                low = torch.where(do, (low << 8) & M32, low)
-                high = torch.where(do, ((high << 8) & M32) | 0xFF, high)
-                code = torch.where(do, ((code << 8) + byte) & M32, code)
-                ip = ip + do.long()
+            n_in = renorm_count(low, high)
+            w = words.gather(1, (ip - ip0)[:, None])[:, 0]
+            code = shift_in(code, n_in, w, ip, inl)
+            ip = ip + n_in
+            low, high = _renorm(low, high, n_in)
             ctx = ctx * 2 + bit
         c = ctx[0] & 255
         path, bits = _byte_path(c)

@@ -10,9 +10,12 @@ JSON line:
 1. device  - the card's name and power limit (``nvidia-smi``);
 2. build   - the CUDA kernels from ``bzip3_tpu_torch/csrc/*.cu`` into
              ``_build/torch_kernels/`` (nvcc), the host passes with g++;
+             each kernel's registers, static shared memory and spills;
 3. parity  - K1 (CM encode) and K2 (CM decode) on the card against
              their plain PyTorch versions on CPU copies of the same
-             rows, byte for byte; K2(K1(x)) == x on two 1 MiB rows;
+             10 rows (among them a confident model meeting random bytes,
+             and a run flag switching on and off), byte for byte;
+             K2(K1(x)) == x on two 1 MiB rows;
 4. golden  - the reference-made ``tests/data/*.bz3`` decode on the
              card, and re-encode to the same bytes;
 5. main    - 8 blocks x 16 MiB of seeded text through ``compress_file``
@@ -39,8 +42,11 @@ JSON line:
              of 32 MiB through ``compress_file`` / ``decompress_file``,
              CM-coded by K3a/K3b in two launches of 16 Mi steps, each
              launch timed with CUDA events as it runs; then K1 in one
-             launch on the same rows must give the same payloads, and K3b
-             at the full width must equal the plain decoder on a prefix;
+             launch on the same rows must give the same payloads, K2 in
+             one launch on them the rows K3b gave back (the new K1/K2
+             against the per-bit core of K3a/K3b, timed in one call),
+             and K3b at the full width must equal the plain decoder on a
+             prefix;
 12. main_oversize - one 144 MiB block at -b 144, past the 128 MiB
              device-block cap: the host-BWT hybrid (host SA-IS, K3a, K3c,
              host inverse BWT), its launches timed as they run, the host
@@ -211,11 +217,13 @@ def phase_build(card: str) -> None:
     t0 = time.perf_counter()
     build.load_host()
     t_host = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.kernel_build_log().splitlines()
-             if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+    # registers, static shared memory and spills of every kernel (-Xptxas -v)
+    res = build.kernel_resources()
+    for k in ("cm_encode_kernel", "cm_decode_kernel"):
+        _require(k in res, f"no -Xptxas -v lines for {k}")
     emit({"phase": "build", "card": card, "kernel_dir": build.KERNEL_DIR,
           "kernels_s": round(t_kernels, 3), "host_s": round(t_host, 3),
-          "ptxas": ptxas})
+          "resources": res})
 
 
 def phase_parity(card: str) -> dict:
@@ -235,8 +243,12 @@ def phase_parity(card: str) -> dict:
         b"\xff" * 130,
         b"Q",                                                 # 1 byte
         b"",                                                  # empty
+        # a confident model meets a surprise: multi-byte renorms
+        bytes(2048) + rng.integers(0, 256, 2048, dtype=np.uint8).tobytes(),
+        b"ab" * 1000 + b"a" * 1000,                           # run flag on and off
         rng.integers(0, 256, n, dtype=np.uint8).tobytes(),  # payload over the cap below
     ]
+    k = len(rows)
     data, lens = _pad(rows, n)
     d_cpu, l_cpu = torch.from_numpy(data), torch.from_numpy(lens)
     d_gpu, l_gpu = d_cpu.cuda(), l_cpu.cuda()
@@ -250,7 +262,7 @@ def phase_parity(card: str) -> dict:
     k_out, k_lens = k_out.cpu().numpy(), k_lens.cpu().numpy()
     p_out, p_lens = p_out.numpy(), p_lens.numpy()
     _require((k_lens == p_lens).all(), (k_lens, p_lens))
-    enc_err = max(_row_diff(k_out[i, : p_lens[i]], p_out[i, : p_lens[i]]) for i in range(8))
+    enc_err = max(_row_diff(k_out[i, : p_lens[i]], p_out[i, : p_lens[i]]) for i in range(k))
     _require(enc_err == 0, "K1 differs from the plain encoder")
 
     # K1 with an output cap that the last row's payload exceeds: the
@@ -258,14 +270,14 @@ def phase_parity(card: str) -> dict:
     cap = 3072
     c_out, c_lens = cm_cuda.cm_encode(d_gpu, l_gpu, cap)
     c_out, c_lens = c_out.cpu().numpy(), c_lens.cpu().numpy()
-    _require((c_lens == p_lens).all() and (c_lens > cap).tolist() == [False] * 7 + [True],
+    _require((c_lens == p_lens).all() and (c_lens > cap).tolist() == [False] * (k - 1) + [True],
              f"capped K1 lengths {c_lens.tolist()}")
-    for i in range(8):
+    for i in range(k):
         m = min(int(p_lens[i]), cap)
         _require(_row_diff(c_out[i, :m], p_out[i, :m]) == 0, f"capped row {i}")
 
     # K2 on the plain payloads, one cut in half (stream exhaustion).
-    pays = [p_out[i, : p_lens[i]].tobytes() for i in range(8)]
+    pays = [p_out[i, : p_lens[i]].tobytes() for i in range(k)]
     pays[1] = pays[1][: len(pays[1]) // 2]
     pdata, plens = _pad(pays, int(p_lens.max()))
     pd_cpu, pl_cpu = torch.from_numpy(pdata), torch.from_numpy(plens)
@@ -274,9 +286,9 @@ def phase_parity(card: str) -> dict:
     dec_plain_ms = (time.perf_counter() - t0) * 1e3
     pd_gpu, pl_gpu = pd_cpu.cuda(), pl_cpu.cuda()
     k_dec = cm_cuda.cm_decode(pd_gpu, pl_gpu, l_gpu, n).cpu().numpy()
-    dec_err = max(_row_diff(k_dec[i, : lens[i]], p_dec[i, : lens[i]]) for i in range(8))
+    dec_err = max(_row_diff(k_dec[i, : lens[i]], p_dec[i, : lens[i]]) for i in range(k))
     _require(dec_err == 0, "K2 differs from the plain decoder")
-    for i in range(8):
+    for i in range(k):
         if i != 1:
             _require(k_dec[i, : lens[i]].tobytes() == rows[i], f"row {i} round trip")
 
@@ -299,7 +311,7 @@ def phase_parity(card: str) -> dict:
     torch.cuda.synchronize()
     steps = 8 * MiB
     out = {
-        "phase": "parity", "card": card, "rows": 8, "width": n, "tolerance": 0,
+        "phase": "parity", "card": card, "rows": k, "width": n, "tolerance": 0,
         "k1": {"max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain_ms,
                "plain_device": "cpu", "payload_lens": p_lens.tolist(),
                "capped_lens": c_lens.tolist(), "cap": cap},
@@ -532,6 +544,8 @@ def phase_main_shapes(card: str, data: bytes, bs: int, blocks: int,
         "phase": "main_shapes", "card": card, "shape": [blocks, width],
         "row_lens": lens.tolist(), "payload_lens": plens.cpu().tolist(),
         "k1_ms": k1_ms, "k2_ms": k2_ms, "round_trip": True, "prefix": prefix,
+        "k1_ns_per_bit_step": k1_ms * 1e6 / (8 * int(lens.max())),
+        "k2_ns_per_bit_step": k2_ms * 1e6 / (8 * int(lens.max())),
         "k1_prefix_max_abs_err": enc_err, "k2_prefix_max_abs_err": dec_err,
         "k1_plain_prefix_ms": enc_plain_ms, "k2_plain_prefix_ms": dec_plain_ms,
         "plain_device": "cpu",
@@ -909,8 +923,9 @@ def phase_main_b32(card: str, data: bytes, prefix: int = 2048) -> dict:
     whose CM rows are past one launch chunk, so K3a and K3b code them in
     two launches of 16 Mi steps, each launch timed as it runs.  Then K1
     in one launch on the same BWT rows must write the payloads of the
-    stream, and K3b at the full width, on those payloads, must equal the
-    plain decoder on every row's first ``prefix`` symbols."""
+    stream, K2 in one launch on those payloads must give back the rows,
+    and K3b at the full width, on those payloads, must equal the plain
+    decoder on every row's first ``prefix`` symbols."""
     import torch
     from bzip3_tpu_torch.ops.device import cm_cuda
     from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch
@@ -940,6 +955,15 @@ def phase_main_b32(card: str, data: bytes, prefix: int = 2048) -> dict:
     for j, (hdr, pay) in enumerate(_payloads(comp, bs)[:blocks]):
         _require(hdr.bwt_idx == idx[j] and len(pay) == pl[j]
                  and k1_pay[j, : pl[j]].tobytes() == pay, f"K1 and K3a differ on block {j}")
+    # K2 in one launch on those payloads must give back the BWT rows: the
+    # rows K3b decoded on the main path, whose round trip was exact
+    before = cm_cuda.LAUNCHES["cm_decode"]
+    k2_dec, k2_ms = _timed(lambda: cm_cuda.cm_decode(payload, plens, l_gpu, width,
+                                                     chunk_steps=width))
+    _require(cm_cuda.LAUNCHES["cm_decode"] == before + 1, "K2 did not launch")
+    inside = torch.arange(width, device=u.device)[None, :] < l_gpu[:, None]
+    _require(torch.equal(torch.where(inside, k2_dec, 0), torch.where(inside, u, 0)),
+             "K2 in one launch differs from K3b's output")
     # K3b at the full width (two launches of 16 Mi steps), rows cut to
     # their first symbols, against the plain decoder on the same payloads
     head = l_gpu.clamp(max=prefix)
@@ -948,12 +972,20 @@ def phase_main_b32(card: str, data: bytes, prefix: int = 2048) -> dict:
     k3b_err, k3b_plain_ms = _decode_prefix_err(dec, payload, plens, hl, prefix)
     _require(k3b_err == 0, "K3b differs from the plain decoder at the main path's shapes")
     u_head = u[:, :prefix].cpu().numpy()
-    _require(all((dec[j, : hl[j]] == u_head[j, : hl[j]]).all() for j in range(blocks)),
-             "K3b does not give back the rows' first symbols")
+    k2_head = k2_dec[:, :prefix].cpu().numpy()
+    _require(all((dec[j, : hl[j]] == u_head[j, : hl[j]]).all()
+                 and (k2_head[j, : hl[j]] == dec[j, : hl[j]]).all() for j in range(blocks)),
+             "K3b does not give back the rows' first symbols, or K2 differs from it")
+    bits = 8 * int(lens.max())
     out.update({
         "shape": [blocks, width], "row_lens": lens.tolist(), "payload_lens": pl,
-        "k3a_equal_k1": True, "k1_one_launch_ms": k1_ms,
-        "k3a_ms": k3a_ms, "k3b_ms": k3b_ms, "timing": "CUDA events around each launch",
+        "k3a_equal_k1": True, "k2_equal_k3b": True,
+        "k1_one_launch_ms": k1_ms, "k3a_ms": k3a_ms,
+        "k2_one_launch_ms": k2_ms, "k3b_ms": k3b_ms,
+        "k3a_over_k1": k3a_ms / k1_ms, "k3b_over_k2": k3b_ms / k2_ms,
+        "ns_per_bit_step": {"k1": k1_ms * 1e6 / bits, "k3a": k3a_ms * 1e6 / bits,
+                            "k2": k2_ms * 1e6 / bits, "k3b": k3b_ms * 1e6 / bits},
+        "timing": "CUDA events around each launch",
         "prefix": prefix, "k3b_prefix_max_abs_err": k3b_err, "k3b_plain_prefix_ms": k3b_plain_ms,
     })
     emit(out)

@@ -113,6 +113,39 @@ def test_encode_capped_overflow_reports_true_length(blocks):
         assert out[i, : olens[i]].numpy().tobytes() == cm_encode(cases[i]), f"row {i}"
 
 
+def _renorm_loop(low: int, high: int):
+    """The reference's renorm: shift while the top byte of low ^ high is 0."""
+    k = 0
+    while (low ^ high) < (1 << 24):
+        low, high = (low << 8) & cm.M32, ((high << 8) & cm.M32) | 0xFF
+        k += 1
+    return k, low, high
+
+
+@pytest.mark.parametrize("xor", [0, 0xFF, 0xFFFF, 0xFFFFFF, 0x1000000, 0xFFFFFFFF, None])
+def test_renorm_count_closed_form(xor):
+    """The closed-form renorm count (and the one shift by it) that the
+    kernels and the plain coders use equals the reference's loop: on the
+    edge states low ^ high = xor, and (None) on 10,000 seeded random
+    pairs whose low ^ high has 0-4 leading zero bytes."""
+    rng = np.random.default_rng(7)
+    low = rng.integers(0, 1 << 32, 10_000, dtype=np.int64)
+    if xor is None:
+        x = rng.integers(0, 1 << 32, low.shape, dtype=np.int64) >> (8 * rng.integers(0, 5, low.shape))
+    else:
+        x = np.full_like(low, xor)
+    high = low ^ x
+    want = np.array([_renorm_loop(int(a), int(b)) for a, b in zip(low, high)])
+    lo, hi = torch.from_numpy(low), torch.from_numpy(high)
+    k = cm.renorm_count(lo, hi)
+    np.testing.assert_array_equal(k.numpy(), want[:, 0])
+    lo2, hi2 = cm._renorm(lo, hi, k)
+    np.testing.assert_array_equal(lo2.numpy(), want[:, 1])
+    np.testing.assert_array_equal(hi2.numpy(), want[:, 2])
+    if xor is None:
+        assert set(want[:, 0]) == {0, 1, 2, 3, 4}
+
+
 def test_wrappers_take_plain_path_for_cpu_tensors(blocks, encoded):
     rows = [2, 3, 6]
     data, lens = _pad([blocks[i] for i in rows], 368)
