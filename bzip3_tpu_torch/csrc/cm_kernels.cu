@@ -15,7 +15,7 @@
 // K3a-K3c code the steps (bytes) [start, stop) of each row in one launch
 // and carry the row's model and registers to the next launch in a
 // global state buffer.  The wrappers cut a row into launches of 16 Mi
-// steps (~19 s on an H100), so that no launch runs for minutes.
+// steps, so that no launch runs for minutes.
 // Semantics: the reference coder, src/libbz3.c:331-494; plain PyTorch
 // version in ops/device/cm.py, which the chip smoke test holds these
 // kernels against byte for byte.
@@ -64,8 +64,14 @@
 // (split_hi).  What is left on a bit's path: the split, the select of
 // low/high, the renorm count (FLO) and the shifts; in K2 also the compare
 // with code and the pick of the child's factor.
-// K3a-K3c keep the per-bit order of the reference (encode_bytes,
-// decode_bytes: predict, split, renorm loop, update, one bit at a time).
+// K3a runs K1's body (encode_steps) and K3b/K3c K2's (decode_steps), as
+// the JAX package builds them from one factory each; a resumable kernel
+// adds only a prologue (fresh tables and registers when start is 0,
+// else loaded from the row's state) and an epilogue (the flush when the
+// row ends in this launch, else the registers stored and the tables
+// spilled by the whole CTA).  K3a's warps 2-7 wait at the spill's
+// __syncthreads() while warps 0-1 code, so no barrier follows a
+// divergent return.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -197,37 +203,18 @@ __device__ __forceinline__ Pred predict(const Model &m, const uint16_t *r1,
     return q;
 }
 
-__device__ __forceinline__ uint32_t split(uint32_t low, uint32_t high, uint32_t scale) {
-    return (uint32_t)(((uint64_t)(high - low) * scale) >> 18);
-}
-
-// split() as one high product: (high - low) * scale >> 18 ==
+// The range split (high - low) * scale >> 18 as one high product,
 // umulhi(high - low, scale << 14), exact as scale < 2^18.  On an H100 a
 // dependent IMAD.HI + IADD takes 9 cycles, IMAD.WIDE + SHF + IADD 23.
 __device__ __forceinline__ uint32_t split_hi(uint32_t low, uint32_t high, uint32_t scale14) {
     return __umulhi(high - low, scale14);
 }
 
-// Counter updates with rates 2/4/6 (src/libbz3.c:347-348).
-__device__ __forceinline__ void update(const Model &m, uint16_t *r1, uint32_t ctx,
-                                       const Pred &q, uint32_t bit) {
-    if (bit) {
-        m.c0[ctx] = (uint16_t)(q.p0 + ((q.p0 ^ 65535) >> 2));
-        r1[ctx] = (uint16_t)(q.p1 + ((q.p1 ^ 65535) >> 4));
-        m.c2[q.sse] = (uint16_t)(q.x1 + ((q.x1 ^ 65535) >> 6));
-        m.c2[q.sse + 1] = (uint16_t)(q.x2 + ((q.x2 ^ 65535) >> 6));
-    } else {
-        m.c0[ctx] = (uint16_t)(q.p0 - (q.p0 >> 2));
-        r1[ctx] = (uint16_t)(q.p1 - (q.p1 >> 4));
-        m.c2[q.sse] = (uint16_t)(q.x1 - (q.x1 >> 6));
-        m.c2[q.sse + 1] = (uint16_t)(q.x2 - (q.x2 >> 6));
-    }
-}
-
-// update's counters, stored into the tables when `on` and else into
-// junk[0..3]: both outcomes of the bit are computed and one selected, and
-// the stores' addresses too, so a warp whose lanes code different bits,
-// or of which only some lanes update, neither branches nor diverges.
+// A node's counter updates with rates 2/4/6 (src/libbz3.c:347-348),
+// stored into the tables when `on` and else into junk[0..3]: both
+// outcomes of the bit are computed and one selected, and the stores'
+// addresses too, so a warp whose lanes code different bits, or of which
+// only some lanes update, neither branches nor diverges.
 __device__ __forceinline__ int adapt(int v, uint32_t bit, int rate) {
     return bit ? v + ((v ^ 65535) >> rate) : v - (v >> rate);
 }
@@ -238,114 +225,6 @@ __device__ __forceinline__ void update_if(const Model &m, uint16_t *r1, uint32_t
     *(on ? r1 + ctx : junk + 1) = (uint16_t)adapt(q.p1, bit, 4);
     *(on ? m.c2 + q.sse : junk + 2) = (uint16_t)adapt(q.x1, bit, 6);
     *(on ? m.c2 + q.sse + 1 : junk + 3) = (uint16_t)adapt(q.x2, bit, 6);
-}
-
-// Range coder registers of one row.
-struct EncRegs {
-    uint32_t low, high, c1, c2;
-    int32_t optr, run;
-};
-struct DecRegs {
-    uint32_t low, high, code, c1, c2;
-    int32_t ip, run;
-};
-__device__ __forceinline__ EncRegs enc_fresh() { return EncRegs{0, 0xFFFFFFFFu, 0, 0, 0, 0}; }
-
-// Encode the next `count` bytes of rd, storing payload byte optr at
-// dst[optr] while optr < out_width and counting it either way.
-__device__ __forceinline__ void encode_bytes(const Model &m, Reader &rd, uint8_t *dst,
-                                             int32_t out_width, EncRegs &r, int32_t count) {
-    uint32_t low = r.low, high = r.high, c1 = r.c1, c2 = r.c2;
-    int32_t optr = r.optr, run = r.run;
-    for (int32_t i = 0; i < count; ++i) {
-        const uint32_t c = rd.byte();
-        run = c1 == c2 ? run + 1 : 0;
-        const uint32_t f = run > 2;
-        uint16_t *r1 = m.c1 + (c1 << 8);
-        const uint16_t *r2 = m.c1 + (c2 << 8);
-        uint32_t ctx = 1;
-#pragma unroll
-        for (int b = 7; b >= 0; --b) {
-            const uint32_t bit = (c >> b) & 1u;
-            const Pred q = predict(m, r1, r2, ctx, f);
-            const uint32_t step = split(low, high, q.scale);
-            if (bit)
-                high = low + step;
-            else
-                low = low + step + 1;
-            while ((low ^ high) < kTop) {
-                if (optr < out_width) dst[optr] = (uint8_t)(low >> 24);
-                ++optr;
-                low <<= 8;
-                high = (high << 8) | 0xFFu;
-            }
-            update(m, r1, ctx, q, bit);
-            ctx = 2 * ctx + bit;
-        }
-        c2 = c1;
-        c1 = ctx & 255u;
-    }
-    r = EncRegs{low, high, c1, c2, optr, run};
-}
-
-// The encoder's flush (src/libbz3.c:426-433): the payload's last 4 bytes.
-__device__ __forceinline__ void encode_flush(uint8_t *dst, int32_t out_width, EncRegs &r) {
-    for (int k = 0; k < 4; ++k) {
-        if (r.optr < out_width) dst[r.optr] = (uint8_t)(r.low >> 24);
-        ++r.optr;
-        r.low <<= 8;
-    }
-}
-
-// The next code byte: input past n_in reads as 0xFFFFFFFF, so an
-// exhausted stream shifts in (code << 8) - 1 (src/libbz3.c:346,437-440).
-__device__ __forceinline__ uint32_t code_byte(Reader &rd, int32_t &ip, int32_t n_in) {
-    const uint32_t b = rd.byte();
-    const uint32_t v = ip < n_in ? b : 0xFFFFFFFFu;
-    ip += ip < n_in;
-    return v;
-}
-
-// The decoder's first four code bytes.
-__device__ __forceinline__ DecRegs decode_start(Reader &rd, int32_t n_in) {
-    DecRegs r{0, 0xFFFFFFFFu, 0, 0, 0, 0, 0};
-    for (int k = 0; k < 4; ++k) r.code = (r.code << 8) + code_byte(rd, r.ip, n_in);
-    return r;
-}
-
-// Decode the next `count` bytes into dst[0, count).
-__device__ __forceinline__ void decode_bytes(const Model &m, Reader &rd, int32_t n_in,
-                                             uint8_t *dst, DecRegs &r, int32_t count) {
-    uint32_t low = r.low, high = r.high, code = r.code, c1 = r.c1, c2 = r.c2;
-    int32_t ip = r.ip, run = r.run;
-    for (int32_t i = 0; i < count; ++i) {
-        run = c1 == c2 ? run + 1 : 0;
-        const uint32_t f = run > 2;
-        uint16_t *r1 = m.c1 + (c1 << 8);
-        const uint16_t *r2 = m.c1 + (c2 << 8);
-        uint32_t ctx = 1;
-#pragma unroll
-        for (int b = 0; b < 8; ++b) {
-            const Pred q = predict(m, r1, r2, ctx, f);
-            const uint32_t mid = low + split(low, high, q.scale);
-            const uint32_t bit = code <= mid;
-            if (bit)
-                high = mid;
-            else
-                low = mid + 1;
-            while ((low ^ high) < kTop) {
-                low <<= 8;
-                high = (high << 8) | 0xFFu;
-                code = (code << 8) + code_byte(rd, ip, n_in);
-            }
-            update(m, r1, ctx, q, bit);
-            ctx = 2 * ctx + bit;
-        }
-        c2 = c1;
-        c1 = ctx & 255u;
-        dst[i] = (uint8_t)c1;
-    }
-    r = DecRegs{low, high, code, c1, c2, ip, run};
 }
 
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -370,17 +249,51 @@ __device__ __forceinline__ void renorm(uint32_t &low, uint32_t &high, uint32_t s
     high = __funnelshift_lc(0xFFFFFFFFu, high, sh);
 }
 
-// K1's model warp: lane b (and its copies b + 8, b + 16, b + 24) handles
-// bit b of every byte: its split factor and bit go to the ring, its
-// node is updated after the byte's reads.
-__device__ __forceinline__ void encode_model(const Model &m, uint32_t *ring, const uint8_t *row,
-                                             int64_t stride, int32_t n, uint32_t lane) {
+// A row's byte history, which every modelling thread tracks: the last
+// two bytes and the run counter.
+struct History {
+    uint32_t c1, c2;
+    int32_t run;
+};
+// The registers of a row: its history, the coder's range, the payload
+// offset (the encoder's optr, the decoder's ip) and the decoder's code.
+struct EncRegs {
+    History h;
+    uint32_t low, high;
+    int32_t optr;
+};
+struct DecRegs {
+    History h;
+    uint32_t low, high, code;
+    int32_t ip;
+};
+__device__ __forceinline__ EncRegs enc_fresh() { return EncRegs{{0, 0, 0}, 0, 0xFFFFFFFFu, 0}; }
+__device__ __forceinline__ DecRegs dec_fresh() { return DecRegs{{0, 0, 0}, 0, 0xFFFFFFFFu, 0, 0}; }
+
+// Where a resumable row's registers lie in state[row, kSmemBytes:], as
+// int32 words; kRegPtr is the encoder's optr or the decoder's ip.
+enum { kRegLow, kRegHigh, kRegPtr, kRegCode, kRegC1, kRegC2, kRegRun };
+
+__device__ __forceinline__ History load_history(const int32_t *regs) {
+    return History{(uint32_t)regs[kRegC1], (uint32_t)regs[kRegC2], regs[kRegRun]};
+}
+__device__ __forceinline__ void store_history(int32_t *regs, const History &h) {
+    regs[kRegC1] = (int32_t)h.c1, regs[kRegC2] = (int32_t)h.c2, regs[kRegRun] = h.run;
+}
+
+// K1's model warp over the next n steps of a row, read from src (16-byte
+// aligned, width bytes readable): lane b (and its copies b + 8, b + 16,
+// b + 24) handles bit b of every byte: its split factor and bit go to
+// the ring, its node is updated after the byte's reads.
+__device__ __forceinline__ void encode_model(const Model &m, uint32_t *ring, const uint8_t *src,
+                                             int64_t width, int32_t n, uint32_t lane,
+                                             History &h) {
     const uint32_t b = lane & 7u;
     uint16_t *junk = reinterpret_cast<uint16_t *>(ring + kRingBytes / 4) + 4 * lane;
     Reader rd;
-    rd.init(row, stride);
-    uint32_t c1 = 0, c2 = 0;
-    int32_t run = 0;
+    rd.init(src, width);
+    uint32_t c1 = h.c1, c2 = h.c2;
+    int32_t run = h.run;
     for (int32_t s0 = 0, q = 0; s0 < n; s0 += kSlotBytes, ++q) {
         const int slot = q % kSlots;
         if (q >= kSlots) bar_sync(1 + kSlots + slot, 64);  // the coder is done with it
@@ -401,14 +314,19 @@ __device__ __forceinline__ void encode_model(const Model &m, uint32_t *ring, con
         }
         bar_arrive(1 + slot, 64);
     }
+    h = History{c1, c2, run};
 }
 
-// K1's coder warp, every lane on the same registers and writing the same
-// bytes (one store a warp), so that the warp never diverges.
+// K1's coder warp over the next n steps, every lane on the same
+// registers and writing the same bytes (one store a warp), so that the
+// warp never diverges.  Payload byte optr goes to dst[optr] while optr <
+// out_width and is counted either way.  When the row ends, the flush
+// (src/libbz3.c:426-433) and the payload's length to *out_len.
 __device__ __forceinline__ void encode_coder(const uint32_t *ring, uint8_t *dst, int32_t out_width,
-                                             int32_t n, uint32_t lane, int32_t *out_len) {
-    uint32_t low = 0, high = 0xFFFFFFFFu;
-    int32_t optr = 0;
+                                             int32_t n, uint32_t lane, EncRegs &r, bool ends,
+                                             int32_t *out_len) {
+    uint32_t low = r.low, high = r.high;
+    int32_t optr = r.optr;
     for (int32_t s0 = 0, q = 0; s0 < n; s0 += kSlotBytes, ++q) {
         const int slot = q % kSlots;
         bar_sync(1 + slot, 64);
@@ -437,9 +355,28 @@ __device__ __forceinline__ void encode_coder(const uint32_t *ring, uint8_t *dst,
         }
         if (s0 + kSlots * kSlotBytes < n) bar_arrive(1 + kSlots + slot, 64);
     }
-    for (int j = 0; j < 4; ++j)  // the flush (src/libbz3.c:426-433)
-        if (optr + j < out_width) dst[optr + j] = (uint8_t)(low >> (24 - 8 * j));
-    if (lane == 0) *out_len = optr + 4;
+    if (ends) {
+        for (int j = 0; j < 4; ++j)
+            if (optr + j < out_width) dst[optr + j] = (uint8_t)(low >> (24 - 8 * j));
+        if (lane == 0) *out_len = optr + 4;
+    }
+    r.low = low, r.high = high, r.optr = optr;
+}
+
+// K1's body, which K3a shares: warp 0 models and warp 1 codes the next n
+// steps of a row (src, width as in encode_model; dst, out_width, ends,
+// out_len as in encode_coder).  The ring's slots and barriers restart at
+// every call.
+__device__ __forceinline__ void encode_steps(const Model &m, unsigned char *smem,
+                                             const uint8_t *src, int64_t width, uint8_t *dst,
+                                             int32_t out_width, int32_t n, uint32_t warp,
+                                             uint32_t lane, EncRegs &r, bool ends,
+                                             int32_t *out_len) {
+    uint32_t *ring = reinterpret_cast<uint32_t *>(smem + kSmemBytes);
+    if (warp == 0)
+        encode_model(m, ring, src, width, n, lane, r.h);
+    else
+        encode_coder(ring, dst, out_width, n, lane, r, ends, out_len);
 }
 
 // K1: encode row blockIdx.x, in[row, :lens[row]] -> out[row, :out_lens[row]].
@@ -457,13 +394,11 @@ cm_encode_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_w
     const uint32_t warp = threadIdx.x >> 5, lane = threadIdx.x & 31u;
     if (warp > 1) return;
     const Model m = model_at(smem);  // shared-memory pointers: LDS/STS
-    uint32_t *ring = reinterpret_cast<uint32_t *>(smem + kSmemBytes);
     const int64_t row = blockIdx.x;
     const int32_t n = clamp_len(lens[row], in_width);
-    if (warp == 0)
-        encode_model(m, ring, in + row * in_stride, in_stride, n, lane);
-    else
-        encode_coder(ring, out + row * out_stride, out_width, n, lane, out_lens + row);
+    EncRegs r = enc_fresh();
+    encode_steps(m, smem, in + row * in_stride, in_stride, out + row * out_stride, out_width, n,
+                 warp, lane, r, true, out_lens + row);
 }
 
 // K2's payload reader.  At each byte's start warp 0 stages 16 words of
@@ -471,7 +406,8 @@ cm_encode_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_w
 // (bytes past n_in 0), into shared memory: a byte's 8 bits read at most
 // 32 code bytes.  At each bit's start peek() takes code bytes ip..ip+3
 // from there, so the loads overlap the bit's arithmetic, and shift_in
-// shifts the bit's k of them into code.  No branch.
+// shifts the bit's k of them into code.  No branch.  Offsets are
+// absolute in the row, so a resumed row starts at its saved ip.
 struct CodeIn {
     const uint32_t *src;
     uint32_t *win;
@@ -485,12 +421,13 @@ struct CodeIn {
         return v >= 4 ? x : (v <= 0 ? 0u : x & (0xFFFFFFFFu << (32 - 8 * v)));
     }
 
-    __device__ __forceinline__ void init(const uint8_t *row, int32_t n, uint32_t *window) {
+    __device__ __forceinline__ void init(const uint8_t *row, int32_t n, uint32_t *window,
+                                         int32_t ip0) {
         src = reinterpret_cast<const uint32_t *>(row);
         win = window;
         n_in = n;
         wlast = n > 0 ? (n - 1) >> 2 : 0;
-        ip = 0;
+        ip = ip0;
     }
 
     // The window of the next byte; every lane of warp 0 stores a word
@@ -520,40 +457,40 @@ struct CodeIn {
         ip += (int32_t)(sh >> 3);
         return __funnelshift_lc(next, code, sh) - __funnelshift_lc(0x01010101u, 0u, m8);
     }
+
+    // The decoder's first four code bytes, by warp 0 at a row's start.
+    __device__ __forceinline__ uint32_t first_code(uint32_t lane) {
+        stage(lane);
+        __syncwarp();
+        const uint32_t code = shift_in(0, peek(), 32, valid8());
+        __syncwarp();
+        return code;
+    }
 };
 
-// K2: decode out_lens[row] bytes of row blockIdx.x.  Input past
-// in_lens[row] (clamped to in_width) reads as 0xFFFFFFFF: an exhausted
-// stream shifts in (code << 8) - 1 (src/libbz3.c:346,437-440).  Thread
-// j predicts node j of every byte (thread 0: node 0, never visited); the
-// tree holds each node's split factor << 14, ready for split_hi.
-__global__ void __launch_bounds__(kThreads)
-cm_decode_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_width,
-                 const int32_t *__restrict__ in_lens, const int32_t *__restrict__ out_lens,
-                 uint8_t *__restrict__ out, int64_t out_stride) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    init_model(smem);
-    const Model m = model_at(smem);  // shared-memory pointers: LDS/STS
+// K2's body, which K3b and K3c share: the CTA decodes the next n bytes of
+// a row into dst[0, n) from its payload src[0, n_in), resuming at code
+// byte r.ip, or at the row's start (first: the first four code bytes
+// are read).  Thread j predicts node j of every byte (thread 0: node 0,
+// never visited); the tree holds each node's split factor << 14, ready
+// for split_hi.  Every thread carries the history; warp 0 also the
+// range, the code and the payload reader.
+__device__ __forceinline__ void decode_steps(const Model &m, unsigned char *smem,
+                                             const uint8_t *src, int32_t n_in, bool first,
+                                             uint8_t *dst, int32_t n, DecRegs &r) {
     uint32_t *tree = reinterpret_cast<uint32_t *>(smem + kTreeOff);
     uint32_t *cur = reinterpret_cast<uint32_t *>(smem + kCurOff);
     const uint32_t node = threadIdx.x, warp = node >> 5;
     uint16_t *junk = reinterpret_cast<uint16_t *>(smem + kJunkOff) + 4 * node;
     const int32_t level = 31 - __clz(node);  // -1 for node 0
-    const int64_t row = blockIdx.x;
-    const int32_t n = clamp_len(out_lens[row], out_stride);
-    uint8_t *dst = out + row * out_stride;
-    uint32_t low = 0, high = 0xFFFFFFFFu, code = 0;
+    uint32_t low = r.low, high = r.high, code = r.code;
     CodeIn rd;
-    if (warp == 0) {  // the first four code bytes
-        rd.init(in + row * in_stride, clamp_len(in_lens[row], in_width),
-                reinterpret_cast<uint32_t *>(smem + kWinOff));
-        rd.stage(node);
-        __syncwarp();
-        code = rd.shift_in(0, rd.peek(), 32, rd.valid8());
-        __syncwarp();
+    if (warp == 0) {
+        rd.init(src, n_in, reinterpret_cast<uint32_t *>(smem + kWinOff), r.ip);
+        if (first) code = rd.first_code(node);
     }
-    uint32_t c1 = 0, c2 = 0;
-    int32_t run = 0;
+    uint32_t c1 = r.h.c1, c2 = r.h.c2;
+    int32_t run = r.h.run;
     for (int32_t i = 0; i < n; ++i) {
         run = c1 == c2 ? run + 1 : 0;
         uint16_t *r1 = m.c1 + (c1 << 8);
@@ -604,6 +541,24 @@ cm_decode_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_w
         c2 = c1;
         c1 = c;
     }
+    r = DecRegs{{c1, c2, run}, low, high, code, rd.ip};
+}
+
+// K2: decode out_lens[row] bytes of row blockIdx.x.  Input past
+// in_lens[row] (clamped to in_width) reads as 0xFFFFFFFF: an exhausted
+// stream shifts in (code << 8) - 1 (src/libbz3.c:346,437-440).
+__global__ void __launch_bounds__(kThreads)
+cm_decode_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_width,
+                 const int32_t *__restrict__ in_lens, const int32_t *__restrict__ out_lens,
+                 uint8_t *__restrict__ out, int64_t out_stride) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    init_model(smem);
+    const Model m = model_at(smem);  // shared-memory pointers: LDS/STS
+    const int64_t row = blockIdx.x;
+    const int32_t n = clamp_len(out_lens[row], out_stride);
+    DecRegs r = dec_fresh();
+    decode_steps(m, smem, in + row * in_stride, clamp_len(in_lens[row], in_width), true,
+                 out + row * out_stride, n, r);
 }
 
 // K3a: K1 over the steps [start, stop) of row blockIdx.x (start a
@@ -612,6 +567,8 @@ cm_decode_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_w
 // stop.  Payload bytes go to their absolute offsets, dropped past
 // out_width; the row that ends in this launch is flushed and its true
 // length written.  A row that ended in an earlier launch is left alone.
+// Warps 2-7 help with the tables and, when the row runs on, wait at the
+// spill's __syncthreads() while warps 0-1 code.
 __global__ void __launch_bounds__(kThreads)
 cm_encode_resume_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_width,
                         const int32_t *__restrict__ lens, uint8_t *__restrict__ out,
@@ -624,24 +581,22 @@ cm_encode_resume_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64
     uint8_t *st = state + row * kStateBytes;
     int32_t *regs = reinterpret_cast<int32_t *>(st + kSmemBytes);
     const Model m = resume_model(smem, st, start == 0);
-    if (threadIdx.x == 0) {
-        EncRegs r = enc_fresh();
-        if (start > 0)
-            r = EncRegs{(uint32_t)regs[0], (uint32_t)regs[1], (uint32_t)regs[2],
-                        (uint32_t)regs[3], regs[4], regs[5]};
-        Reader rd;
-        rd.init(in + row * in_stride + start, in_stride - start);
-        uint8_t *dst = out + row * out_stride;
-        encode_bytes(m, rd, dst, out_width, r, min(n, stop) - start);
-        if (n <= stop) {
-            encode_flush(dst, out_width, r);
-            out_lens[row] = r.optr;
-        } else {
-            regs[0] = (int32_t)r.low, regs[1] = (int32_t)r.high, regs[2] = (int32_t)r.c1;
-            regs[3] = (int32_t)r.c2, regs[4] = r.optr, regs[5] = r.run;
-        }
-    }
-    if (n > stop) spill_model(smem, st);
+    const uint32_t warp = threadIdx.x >> 5, lane = threadIdx.x & 31u;
+    const bool ends = n <= stop;
+    if (warp > 1 && ends) return;
+    EncRegs r = enc_fresh();
+    if (start > 0)
+        r = EncRegs{load_history(regs), (uint32_t)regs[kRegLow], (uint32_t)regs[kRegHigh],
+                    regs[kRegPtr]};
+    if (warp <= 1)
+        encode_steps(m, smem, in + row * in_stride + start, in_stride - start,
+                     out + row * out_stride, out_width, min(n, stop) - start, warp, lane, r, ends,
+                     out_lens + row);
+    if (ends) return;
+    if (threadIdx.x == 0) store_history(regs, r.h);  // the model warp's
+    if (threadIdx.x == 32)                            // the coder warp's
+        regs[kRegLow] = (int32_t)r.low, regs[kRegHigh] = (int32_t)r.high, regs[kRegPtr] = r.optr;
+    spill_model(smem, st);  // after the model warp's last updates
 }
 
 // K3b (out_rel 0) and K3c (out_rel 1): K2 over the steps [start, stop)
@@ -649,7 +604,7 @@ cm_encode_resume_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64
 // out[row, i]; K3c at out[row, i - start] of a [rows, stop - start]
 // buffer.  Rows decode out_lens[row] bytes, clamped to out_width.  The
 // first four code bytes are read in the first launch; a later launch
-// resumes the input at byte ip, from the 16-byte word that holds it.
+// resumes the payload window at the saved ip.
 __global__ void __launch_bounds__(kThreads)
 cm_decode_resume_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_width,
                         const int32_t *__restrict__ in_lens, const int32_t *__restrict__ out_lens,
@@ -663,29 +618,19 @@ cm_decode_resume_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64
     uint8_t *st = state + row * kStateBytes;
     int32_t *regs = reinterpret_cast<int32_t *>(st + kSmemBytes);
     const Model m = resume_model(smem, st, start == 0);
+    DecRegs r = dec_fresh();
+    if (start > 0)
+        r = DecRegs{load_history(regs), (uint32_t)regs[kRegLow], (uint32_t)regs[kRegHigh],
+                    (uint32_t)regs[kRegCode], regs[kRegPtr]};
+    decode_steps(m, smem, in + row * in_stride, clamp_len(in_lens[row], in_width), start == 0,
+                 out + row * out_stride + (out_rel ? 0 : start), min(n, stop) - start, r);
+    if (n <= stop) return;
     if (threadIdx.x == 0) {
-        const int32_t n_in = clamp_len(in_lens[row], in_width);
-        const uint8_t *src = in + row * in_stride;
-        Reader rd;
-        DecRegs r;
-        if (start == 0) {
-            rd.init(src, in_stride);
-            r = decode_start(rd, n_in);
-        } else {
-            r = DecRegs{(uint32_t)regs[0], (uint32_t)regs[1], (uint32_t)regs[2],
-                        (uint32_t)regs[3], (uint32_t)regs[4], regs[5], regs[6]};
-            const int32_t word = r.ip & ~15;
-            rd.init(src + word, in_stride - word);
-            for (int k = 0; k < (r.ip & 15); ++k) rd.byte();
-        }
-        uint8_t *dst = out + row * out_stride + (out_rel ? 0 : start);
-        decode_bytes(m, rd, n_in, dst, r, min(n, stop) - start);
-        if (n > stop) {
-            regs[0] = (int32_t)r.low, regs[1] = (int32_t)r.high, regs[2] = (int32_t)r.code;
-            regs[3] = (int32_t)r.c1, regs[4] = (int32_t)r.c2, regs[5] = r.ip, regs[6] = r.run;
-        }
+        store_history(regs, r.h);
+        regs[kRegLow] = (int32_t)r.low, regs[kRegHigh] = (int32_t)r.high;
+        regs[kRegCode] = (int32_t)r.code, regs[kRegPtr] = r.ip;
     }
-    if (n > stop) spill_model(smem, st);
+    spill_model(smem, st);  // after every thread's last updates
 }
 
 }  // namespace
@@ -721,9 +666,9 @@ extern "C" int bz3t_cm_encode_resume(const uint8_t *in, int64_t in_stride, int64
                                      int32_t out_width, int32_t *out_lens, uint8_t *state,
                                      int32_t start, int32_t stop, int32_t rows, void *stream) {
     cudaError_t e = cudaFuncSetAttribute(
-        cm_encode_resume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        cm_encode_resume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kEncSmemBytes);
     if (e != cudaSuccess) return (int)e;
-    cm_encode_resume_kernel<<<rows, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+    cm_encode_resume_kernel<<<rows, kThreads, kEncSmemBytes, (cudaStream_t)stream>>>(
         in, in_stride, in_width, lens, out, out_stride, out_width, out_lens, state, start, stop);
     return (int)cudaGetLastError();
 }
@@ -734,9 +679,9 @@ extern "C" int bz3t_cm_decode_resume(const uint8_t *in, int64_t in_stride, int64
                                      int32_t out_rel, uint8_t *state, int32_t start,
                                      int32_t stop, int32_t rows, void *stream) {
     cudaError_t e = cudaFuncSetAttribute(
-        cm_decode_resume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        cm_decode_resume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecSmemBytes);
     if (e != cudaSuccess) return (int)e;
-    cm_decode_resume_kernel<<<rows, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+    cm_decode_resume_kernel<<<rows, kThreads, kDecSmemBytes, (cudaStream_t)stream>>>(
         in, in_stride, in_width, in_lens, out_lens, out_width, out, out_stride, out_rel, state,
         start, stop);
     return (int)cudaGetLastError();

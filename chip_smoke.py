@@ -43,20 +43,20 @@ JSON line:
              CM-coded by K3a/K3b in two launches of 16 Mi steps, each
              launch timed with CUDA events as it runs; then K1 in one
              launch on the same rows must give the same payloads, K2 in
-             one launch on them the rows K3b gave back (the new K1/K2
-             against the per-bit core of K3a/K3b, timed in one call),
-             and K3b at the full width must equal the plain decoder on a
-             prefix;
+             one launch on them the rows K3b gave back (K3a/K3b against
+             K1/K2, whose body they share, timed in one call), and K3b
+             at the full width must equal the plain decoder on a prefix;
 12. main_oversize - one 144 MiB block at -b 144, past the 128 MiB
              device-block cap: the host-BWT hybrid (host SA-IS, K3a, K3c,
              host inverse BWT), its launches timed as they run, the host
              SA-IS held against the device BWT, and K3a and K3c at the
-             full width against the plain coders on a prefix.
+             full width against the plain coders on a prefix; K3a's and
+             K3c's ns a bit step against K1's and K2's from main_b32.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a card, or outside a checkout of the repository, it
-exits non-zero before printing any result.  About 12 minutes in all.
+exits non-zero before printing any result.  About 7 minutes in all.
 """
 
 from __future__ import annotations
@@ -219,7 +219,8 @@ def phase_build(card: str) -> None:
     t_host = time.perf_counter() - t0
     # registers, static shared memory and spills of every kernel (-Xptxas -v)
     res = build.kernel_resources()
-    for k in ("cm_encode_kernel", "cm_decode_kernel"):
+    for k in ("cm_encode_kernel", "cm_decode_kernel", "cm_encode_resume_kernel",
+              "cm_decode_resume_kernel"):
         _require(k in res, f"no -Xptxas -v lines for {k}")
     emit({"phase": "build", "card": card, "kernel_dir": build.KERNEL_DIR,
           "kernels_s": round(t_kernels, 3), "host_s": round(t_host, 3),
@@ -992,13 +993,14 @@ def phase_main_b32(card: str, data: bytes, prefix: int = 2048) -> dict:
     return out
 
 
-def phase_main_oversize(card: str, data: bytes, prefix: int = 2048) -> dict:
+def phase_main_oversize(card: str, data: bytes, b32: dict, prefix: int = 2048) -> dict:
     """One block of len(data) bytes, past the 128 MiB device-block cap,
     through the stream API: the host-BWT hybrid with K3a and K3c, each
     launch timed as it runs.  The host SA-IS is held against the device
     BWT on the block's own post-prepass row; K3a's payload and K3c's
     output at the full width against the plain encoder and decoder on
-    the row's first ``prefix`` symbols."""
+    the row's first ``prefix`` symbols.  K3a's and K3c's ns a bit step
+    on the row against K1's and K2's in one launch in ``b32``."""
     import torch
     from bzip3_tpu_torch.ops import host
     from bzip3_tpu_torch.ops.device import cm, cm_cuda
@@ -1067,6 +1069,9 @@ def phase_main_oversize(card: str, data: bytes, prefix: int = 2048) -> dict:
         "prefix": prefix, "k3a_prefix_max_abs_err": err, "k3a_plain_prefix_ms": plain_ms,
         "k3c_prefix_max_abs_err": k3c_err, "k3c_plain_prefix_ms": k3c_plain_ms,
         "k3a_ms": k3a_ms, "k3c_ms": k3c_ms, "timing": "CUDA events around each launch",
+        "ns_per_bit_step": {"k3a": k3a_ms * 1e6 / (8 * n), "k3c": k3c_ms * 1e6 / (8 * n)},
+        "k3a_over_k1": k3a_ms * 1e6 / (8 * n) / b32["ns_per_bit_step"]["k1"],
+        "k3c_over_k2": k3c_ms * 1e6 / (8 * n) / b32["ns_per_bit_step"]["k2"],
     })
     emit(out)
     return out
@@ -1087,16 +1092,16 @@ def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict
     prefix_err = {"K3a": over["k3a_prefix_max_abs_err"], "K3b": b32["k3b_prefix_max_abs_err"],
                   "K3c": over["k3c_prefix_max_abs_err"]}
     rows = []
-    for kid, key, fn, replaces, ph, ins, outs, ns_bit in (
+    for kid, key, fn, replaces, ph, ins, outs, ns_bit, ns_k3 in (
         ("K3a", "cm_encode_resume", "cm_encode_resume_kernel",
          "bzip3_tpu/ops/device/cm_pallas.py:1883", b32, b32["row_lens"], b32["payload_lens"],
-         ns["k1_ns_per_bit"]),
+         ns["k1_ns_per_bit"], b32["ns_per_bit_step"]["k3a"]),
         ("K3b", "cm_decode_resume", "cm_decode_resume_kernel",
          "bzip3_tpu/ops/device/cm_pallas.py:1029", b32, b32["payload_lens"], b32["row_lens"],
-         ns["k2_ns_per_bit"]),
+         ns["k2_ns_per_bit"], b32["ns_per_bit_step"]["k3b"]),
         ("K3c", "cm_decode_stream", "cm_decode_resume_kernel (out_rel)",
          "bzip3_tpu/ops/device/cm_pallas.py:1100", over, [over["payload_len"]],
-         [over["post_prepass_len"]], ns["k2_ns_per_bit"]),
+         [over["post_prepass_len"]], ns["k2_ns_per_bit"], over["ns_per_bit_step"]["k3c"]),
     ):
         k = kid.lower()
         steps = outs if kid != "K3a" else ins
@@ -1116,10 +1121,12 @@ def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict
             "plain_device": resume[k]["plain_device"],
             "kernel_ms_at_plain_shape": resume[k]["ms"],
             "serial_bound_ms": 8 * max(steps) * ns_bit * 1e-6,
+            "ns_per_bit_step": ns_k3,
             "spill_bytes": spill, "spill_bound_ms": spill / PEAK_BYTES_PER_S * 1e3,
         })
     rows[0]["launches_oversize"] = over["launches"]["cm_encode_resume"]
     rows[0]["ms_oversize"] = over["k3a_ms"]
+    rows[0]["ns_per_bit_step_oversize"] = over["ns_per_bit_step"]["k3a"]
     return rows
 
 
@@ -1232,7 +1239,7 @@ def main() -> int:
     resume = phase_parity_resume(smi)
     log = pdata[4 * bs : 7 * bs]  # 48 MiB of log lines
     b32 = phase_main_b32(smi, data[: 2 * bs] + log[: 2 * bs])
-    over = phase_main_oversize(smi, data[: 6 * bs] + log)
+    over = phase_main_oversize(smi, data[: 6 * bs] + log, b32)
     emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,8 @@ It builds ``bzip3_tpu_torch/csrc/*.cu`` as the port does (nvcc,
   ``IMAD``, the range split as a wide or a high product, the renorm
   count and shift, a select);
 - times K1 and K2 (``cm_encode``/``cm_decode``) on one text row of
-  ``--mib`` MiB (CUDA events; ns per bit step) while sampling
+  ``--mib`` MiB, then K3a and K3b on the same row in launches of 1 Mi
+  steps (CUDA events; ns per bit step) while sampling
   ``nvidia-smi --query-gpu=clocks.sm``, so a step can be read in SM cycles.
 
 One JSON line per part; the last holds the card's name and power limit.
@@ -115,7 +116,8 @@ def latencies(build, out_dir: str) -> dict:
 
 
 def time_row(mib: int) -> dict:
-    """K1 and K2 on one text row, with SM clocks sampled meanwhile."""
+    """K1 and K2 on one text row, then K3a and K3b on it in launches of
+    1 Mi steps, with SM clocks sampled meanwhile."""
     import numpy as np
     import torch
 
@@ -137,25 +139,34 @@ def time_row(mib: int) -> dict:
 
     th = threading.Thread(target=sample)
     th.start()
-    t0, t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    t0.record()
+    chunk = 1 << 20
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
     pay, plen = cm_cuda.cm_encode(row, ln)
-    t1.record()
+    ev[1].record()
     back = cm_cuda.cm_decode(pay, plen, ln, n)
-    t2.record()
+    ev[2].record()
+    pay3, plen3 = cm_cuda.cm_encode_resumable(row, ln, chunk_steps=chunk)
+    ev[3].record()
+    back3 = cm_cuda.cm_decode_resumable(pay, plen, ln, n, chunk)
+    ev[4].record()
     torch.cuda.synchronize()
     stop.set()
     th.join()
     if not torch.equal(back, row):
         raise RuntimeError("K2(K1(x)) differs on the timed row")
-    k1, k2 = t0.elapsed_time(t1), t1.elapsed_time(t2)
+    m = int(plen[0])
+    if not (torch.equal(plen3, plen) and torch.equal(pay3[:, :m], pay[:, :m])
+            and torch.equal(back3, row)):
+        raise RuntimeError("K3a or K3b differs from K1 or K2 on the timed row")
     mhz = sorted(clocks)[len(clocks) // 2] if clocks else None
-    res = {"part": "timing", "bytes": n, "k1_ms": k1, "k2_ms": k2,
-           "k1_ns_per_bit": k1 * 1e6 / (8 * n), "k2_ns_per_bit": k2 * 1e6 / (8 * n),
+    res = {"part": "timing", "bytes": n, "k3_chunk_steps": chunk,
            "sm_mhz_samples": clocks, "sm_mhz_median": mhz}
-    if mhz:
-        res["k1_cycles_per_bit"] = res["k1_ns_per_bit"] * mhz / 1e3
-        res["k2_cycles_per_bit"] = res["k2_ns_per_bit"] * mhz / 1e3
+    for i, k in enumerate(("k1", "k2", "k3a", "k3b")):
+        res[f"{k}_ms"] = ms = ev[i].elapsed_time(ev[i + 1])
+        res[f"{k}_ns_per_bit"] = ms * 1e6 / (8 * n)
+        if mhz:
+            res[f"{k}_cycles_per_bit"] = res[f"{k}_ns_per_bit"] * mhz / 1e3
     return res
 
 

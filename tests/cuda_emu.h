@@ -1,10 +1,11 @@
 // A host emulation of the CUDA built-ins that bzip3_tpu_torch/csrc/
 // cm_kernels.cu uses, so that tests/test_torch_cm_emulated.py can run the
-// kernels' own source on the CPU: one std::thread per CUDA thread, blocks
-// one after another, shared memory one static buffer, __syncthreads,
-// __syncwarp and the named barriers (bar.sync / bar.arrive with a thread
-// count) as counting barriers.  A barrier whose count differs between
-// arrivals, or that waits for 20 s, aborts the process.
+// kernels' own source on the CPU: one std::thread per CUDA thread, up to
+// kEmuBlocks blocks at a time, each with its own shared memory and
+// barriers; __syncthreads, __syncwarp and the named barriers (bar.sync /
+// bar.arrive with a thread count) as counting barriers.  A barrier whose
+// count differs between arrivals, or that waits for 20 s, aborts the
+// process.
 #pragma once
 #include <algorithm>
 #include <chrono>
@@ -13,6 +14,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <functional>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -83,21 +85,38 @@ struct EmuBarrier {
         }
     }
 };
-extern EmuBarrier emu_bars[16], emu_warps[32];
+// The block's shared memory (the kernels' `smem`) and barriers, set in
+// each thread by emu_launch.
+extern thread_local unsigned char *smem;
+extern thread_local EmuBarrier *emu_bars, *emu_warps;
 inline void emu_bar(int id, int count, bool wait) { emu_bars[id].arrive(count, wait); }
 inline void __syncthreads() { emu_bar(0, blockDim.x, true); }
 inline void __syncwarp() { emu_warps[threadIdx.x >> 5].arrive(32, true); }
 
-// Runs body as `rows` blocks of blockDim.x threads, one block at a time.
+struct EmuBlock {
+    alignas(16) unsigned char smem[232448];  // an H100 block's most
+    EmuBarrier bars[16], warps[32];
+};
+constexpr int kEmuBlocks = 4;
+
+// Runs body as `rows` blocks of blockDim.x threads, kEmuBlocks at a time.
 inline void emu_launch(int rows, const std::function<void()> &body) {
-    for (int r = 0; r < rows; ++r) {
+    for (int r0 = 0; r0 < rows; r0 += kEmuBlocks) {
+        std::vector<std::unique_ptr<EmuBlock>> blocks;
         std::vector<std::thread> ts;
-        for (uint32_t t = 0; t < blockDim.x; ++t)
-            ts.emplace_back([&body, r, t] {
-                threadIdx.x = t;
-                blockIdx.x = (uint32_t)r;
-                body();
-            });
+        for (int r = r0; r < std::min(rows, r0 + kEmuBlocks); ++r) {
+            blocks.emplace_back(new EmuBlock());
+            EmuBlock *b = blocks.back().get();
+            for (uint32_t t = 0; t < blockDim.x; ++t)
+                ts.emplace_back([&body, b, r, t] {
+                    threadIdx.x = t;
+                    blockIdx.x = (uint32_t)r;
+                    smem = b->smem;
+                    emu_bars = b->bars;
+                    emu_warps = b->warps;
+                    body();
+                });
+        }
         for (auto &t : ts) t.join();
     }
 }
