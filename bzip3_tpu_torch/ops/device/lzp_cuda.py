@@ -11,6 +11,13 @@ any other device raises.
 
 Outputs past a row's length, and whole rows that report -1, are left
 unwritten or partly written.
+
+A caller that passes ``stats`` (a [K, 5] int32 tensor on the card) gets
+each row's counters of the kernel's windows of 32 positions: K5
+[windows, events, extension steps, matches, us], K6 [windows, events,
+windows that read the table, copy steps, us], us being the row's own
+time in microseconds.  The plain version counts
+nothing, so ``stats`` with CPU tensors raises.
 """
 
 from __future__ import annotations
@@ -29,11 +36,23 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+STATS = 5  # counters a row
+
+
 def _luts(k: int, device) -> torch.Tensor:
     return torch.zeros((k, 1 << lzp.LZP_BITS), dtype=torch.int32, device=device)
 
 
-def lzp_encode(data: torch.Tensor, lengths: torch.Tensor):
+def _stats_ptr(stats: torch.Tensor | None, k: int, where: str) -> int | None:
+    if stats is None:
+        return None
+    check(stats, "stats", torch.int32, 2)
+    if where == "cpu" or stats.device.type != "cuda" or tuple(stats.shape) != (k, STATS):
+        raise ValueError(f"stats must be a [{k}, {STATS}] int32 tensor on the card")
+    return stats.data_ptr()
+
+
+def lzp_encode(data: torch.Tensor, lengths: torch.Tensor, stats: torch.Tensor | None = None):
     """K5: LZP-encode each row data[k, :lengths[k]] (``lzp.lzp_encode_batch``).
 
     data [K, N] uint8, lengths [K] int32.  Returns (out [K, N + OUT_PAD]
@@ -44,7 +63,9 @@ def lzp_encode(data: torch.Tensor, lengths: torch.Tensor):
     k, n = data.shape
     if lengths.shape[0] != k:
         raise ValueError(f"lengths has {lengths.shape[0]} rows, data {k}")
-    if route(data, lengths) == "cpu":
+    where = route(data, lengths)
+    sp = _stats_ptr(stats, k, where)
+    if where == "cpu":
         return lzp.lzp_encode_batch(data, lengths)
     w = n + lzp.OUT_PAD
     out = torch.empty((k, w), dtype=torch.uint8, device=data.device)
@@ -52,9 +73,9 @@ def lzp_encode(data: torch.Tensor, lengths: torch.Tensor):
     if k:
         luts = _luts(k, data.device)
         with torch.cuda.device(data.device):
-            rc = entry("bz3t_lzp_encode", [P, I64, I64, P, P, I64, P, P, I32, P])(
+            rc = entry("bz3t_lzp_encode", [P, I64, I64, P, P, I64, P, P, P, I32, P])(
                 data.data_ptr(), n, n, lengths.data_ptr(), out.data_ptr(), w,
-                luts.data_ptr(), out_lens.data_ptr(), k,
+                luts.data_ptr(), out_lens.data_ptr(), sp, k,
                 torch.cuda.current_stream().cuda_stream,
             )
         raise_on(rc, "lzp_encode")
@@ -62,7 +83,8 @@ def lzp_encode(data: torch.Tensor, lengths: torch.Tensor):
     return out, out_lens
 
 
-def lzp_decode(data: torch.Tensor, in_lens: torch.Tensor, max_out: int):
+def lzp_decode(data: torch.Tensor, in_lens: torch.Tensor, max_out: int,
+               stats: torch.Tensor | None = None):
     """K6: LZP-decode each row data[k, :in_lens[k]] to at most max_out
     bytes (``lzp.lzp_decode_batch``).
 
@@ -76,16 +98,18 @@ def lzp_decode(data: torch.Tensor, in_lens: torch.Tensor, max_out: int):
         raise ValueError(f"in_lens has {in_lens.shape[0]} rows, data {k}")
     if max_out < 4:
         raise ValueError(f"max_out must be at least 4, got {max_out}")
-    if route(data, in_lens) == "cpu":
+    where = route(data, in_lens)
+    sp = _stats_ptr(stats, k, where)
+    if where == "cpu":
         return lzp.lzp_decode_batch(data, in_lens, max_out)
     out = torch.empty((k, max_out), dtype=torch.uint8, device=data.device)
     out_lens = torch.empty((k,), dtype=torch.int32, device=data.device)
     if k:
         luts = _luts(k, data.device)
         with torch.cuda.device(data.device):
-            rc = entry("bz3t_lzp_decode", [P, I64, I64, P, P, I64, I32, P, P, I32, P])(
+            rc = entry("bz3t_lzp_decode", [P, I64, I64, P, P, I64, I32, P, P, P, I32, P])(
                 data.data_ptr(), m, m, in_lens.data_ptr(), out.data_ptr(), max_out, max_out,
-                luts.data_ptr(), out_lens.data_ptr(), k,
+                luts.data_ptr(), out_lens.data_ptr(), sp, k,
                 torch.cuda.current_stream().cuda_stream,
             )
         raise_on(rc, "lzp_decode")

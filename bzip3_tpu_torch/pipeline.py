@@ -310,14 +310,19 @@ class DevicePipeline:
         Mirrors every hardening check of bz3_decode_block
         (src/libbz3.c:656-809): header bounds, the BWT index bound,
         stage-size bounds and the final CRC.
+
+        The errors come in the JAX package's order (pipeline.py:800-1021):
+        every block's header and size checks first; then wave by wave,
+        each wave's stage checks, then its CRCs in block order.  A wave's
+        rows leave the literals out, so each wave also owns, for its CRC
+        check, the literals after the previous wave's last row up to its
+        own last row, and the last wave those after it.  The default
+        path's device verify checks every block's CRC at the end instead.
         """
         if self.oversize:
             return self._decode_blocks_oversize(blocks)
         t = self.timer
         bnd = bound(self.block_size)
-        # the default path's device verify checks every block at the end
-        # (pipeline.py:1012-1021); otherwise literals are checked here
-        verify_at_end = self.device_crc_verify and not self.device_prepass
         finals: list[bytes] = [b""] * len(blocks)
         want_crc: list[int] = [0] * len(blocks)
         rows = []  # (block index, header, payload, size before BWT)
@@ -326,22 +331,32 @@ class DevicePipeline:
                 hdr, sbb = self._check_header(block, orig_size, bnd)
                 want_crc[i] = hdr.crc32
                 if hdr.is_literal:
-                    data = block[8:]
-                    if not verify_at_end and host.crc32(data) != hdr.crc32:
-                        raise Bz3Error(BZ3_ERR_CRC)
-                    finals[i] = data
-                    continue
-                rows.append((i, hdr, block[hdr.header_size() :], sbb))
-        for wave in _waves(rows, lambda r: max(r[3], len(r[2]))):
-            self._decode_wave(wave, blocks, finals, bnd)
-        if verify_at_end:
+                    finals[i] = block[8:]
+                else:
+                    rows.append((i, hdr, block[hdr.header_size() :], sbb))
+        lo = 0
+        waves = _waves(rows, lambda r: max(r[3], len(r[2])))
+        for k, wave in enumerate(waves):
+            hi = len(blocks) if k == len(waves) - 1 else wave[-1][0] + 1
+            self._decode_wave(wave, range(lo, hi), blocks, finals, want_crc, bnd)
+            lo = hi
+        if self.device_crc_verify and not self.device_prepass:
             with t.stage("decode/crc_verify"):
                 for grp in _waves(list(range(len(blocks))), lambda i: len(finals[i])):
                     crcs = crc32_cuda.crc32_batch(*self._upload([finals[i] for i in grp]))
                     for i, crc in zip(grp, crcs.tolist()):
                         if crc != want_crc[i]:
                             raise Bz3Error(BZ3_ERR_CRC)
+        elif not waves:
+            self._check_crcs(range(len(blocks)), finals, want_crc)
         return finals
+
+    @staticmethod
+    def _check_crcs(span, finals: list[bytes], want_crc: list[int]) -> None:
+        """Host CRC of blocks ``span``, in block order."""
+        for i in span:
+            if host.crc32(finals[i]) != want_crc[i]:
+                raise Bz3Error(BZ3_ERR_CRC)
 
     def _check_header(self, block: bytes, orig_size: int, bnd: int):
         """(header, size before the BWT; None for a literal) of one block,
@@ -372,7 +387,8 @@ class DevicePipeline:
             raise Bz3Error(BZ3_ERR_MALFORMED_HEADER)
         return hdr, sbb
 
-    def _decode_wave(self, wave: list, blocks, finals: list[bytes], bnd: int) -> None:
+    def _decode_wave(self, wave: list, span: range, blocks, finals: list[bytes],
+                     want_crc: list[int], bnd: int) -> None:
         t = self.timer
         with t.stage("decode/h2d"):
             pw = _round_up(max(len(r[2]) for r in wave), 256)
@@ -387,7 +403,7 @@ class DevicePipeline:
         with t.stage("decode/bwt"):
             data = bwt_inverse_batch(u, sbb, idx)
         if self.device_prepass:
-            self._post_device(wave, blocks, data, sbb, finals)
+            self._post_device(wave, span, blocks, data, sbb, finals, want_crc)
             return
         with t.stage("decode/d2h"):
             arr = data[:, : max(1, max(r[3] for r in wave))].cpu().numpy()
@@ -407,15 +423,15 @@ class DevicePipeline:
                 finals[i] = cur
         if not self.device_crc_verify:
             with t.stage("decode/crc_verify"):
-                for i, hdr, _payload, _size in wave:
-                    if host.crc32(finals[i]) != hdr.crc32:
-                        raise Bz3Error(BZ3_ERR_CRC)
+                self._check_crcs(span, finals, want_crc)
 
-    def _post_device(self, wave: list, blocks, data, sbb, finals: list[bytes]) -> None:
+    def _post_device(self, wave: list, span: range, blocks, data, sbb, finals: list[bytes],
+                     want_crc: list[int]) -> None:
         """un-LZP, un-RLE and the CRC on the device (the JAX package's
         ``decode_core_full``, pipeline.py:213-228), then its checks in
-        its order (:950-973): a failed stage is a CRC error, a length
-        past the block size a malformed header, then the CRC itself."""
+        its order (:950-973), block by block over ``span``: a literal's
+        host CRC; for a row, a failed stage is a CRC error, a length past
+        the block size a malformed header, then the CRC itself."""
         t = self.timer
         width = self.width
         models = torch.tensor([r[1].model for r in wave], dtype=torch.int32).to(self.device)
@@ -441,14 +457,19 @@ class DevicePipeline:
         with t.stage("decode/d2h"):
             cols = _to_host({"len": final_lens, "crc": crc, "ok": stage_ok})
             arr = final[:, : max(1, min(max(cols["len"]), width))].cpu().numpy()
+        at = {r[0]: j for j, r in enumerate(wave)}
         with t.stage("decode/verify"):
-            for j, (i, hdr, _payload, _size) in enumerate(wave):
+            for i in span:
+                j = at.get(i)
+                if j is None:
+                    self._check_crcs((i,), finals, want_crc)
+                    continue
                 if not cols["ok"][j]:
                     raise Bz3Error(BZ3_ERR_CRC)
                 ln = cols["len"][j]
                 if ln > self.block_size:
                     raise Bz3Error(BZ3_ERR_MALFORMED_HEADER)
-                if cols["crc"][j] != hdr.crc32:
+                if cols["crc"][j] != want_crc[i]:
                     raise Bz3Error(BZ3_ERR_CRC)
                 finals[i] = arr[j, :ln].tobytes()
 

@@ -11,6 +11,10 @@ JSON line:
 2. build   - the CUDA kernels from ``bzip3_tpu_torch/csrc/*.cu`` into
              ``_build/torch_kernels/`` (nvcc), the host passes with g++;
              each kernel's registers, static shared memory and spills;
+             beside them the pointer chase of scripts/torch_sm_latency.cu;
+   latency - the L2 round trip (an 8 MiB table) and a device memory
+             one (256 MiB) of a dependent load, one thread; the cycles
+             of a warp's __match_any_sync;
 3. parity  - K1 (CM encode) and K2 (CM decode) on the card against
              their plain PyTorch versions on CPU copies of the same
              10 rows (among them a confident model meeting random bytes,
@@ -26,15 +30,19 @@ JSON line:
              against its plain version on every row's first 2 KiB;
 7. parity_prepass - K4 (CRC lane scan), K5 (LZP encode) and K6 (LZP
              decode) against their plain versions on CPU copies of the
-             same rows of <= 4 KiB, byte for byte, K4's CRCs against the
-             host C++, and each kernel's step latency on one row;
+             same rows of <= 4 KiB (for K5/K6 also every hazard of their
+             windows, ``lzp_hazards``, and K6 cut at max_out), byte for
+             byte, K4's CRCs against the host C++, and each kernel's
+             step time on one row;
 8. main_prepass - the device prepass chain: 8 blocks x 16 MiB (text,
              log lines where LZP fires, a sparse block where RLE fires)
              through ``compress_file`` / ``decompress_file`` with
              ``device_prepass=True``; the stream must equal the default
              path's, with LZP and RLE each kept on some block;
 9. prepass_shapes - K4, K5 and K6 on that phase's own [8, 16 Mi] rows,
-             timed, each checked in full against the host C++;
+             timed, each checked in full against the host C++; K5/K6's
+             windows and events of each row, their bounds by bytes and
+             by the L2 round trip;
 10. parity_resume - K3a, K3b and K3c (the resumable CM kernels) against
              their plain versions on CPU copies of the same rows, in
              launches of 256 steps, byte for byte, and against K1/K2;
@@ -56,7 +64,7 @@ JSON line:
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a card, or outside a checkout of the repository, it
-exits non-zero before printing any result.  About 7 minutes in all.
+exits non-zero before printing any result.  About 6 minutes in all.
 """
 
 from __future__ import annotations
@@ -84,12 +92,17 @@ PEAK_OPS_PER_S = 67e12
 # counter updates; context update), counted from csrc/cm_kernels.cu.
 OPS_PER_BIT = 40
 # Operations of one CRC lane step (load, xor, mask, table load, shift,
-# xor) and of one LZP byte step (hash: 3 shifts/xors and a mask; table
-# load and store; tests of the slot and the token; byte load and
-# guarded store; context shift and or; loop tests), counted from
-# csrc/crc32_kernels.cu and csrc/lzp_kernels.cu.
+# xor), counted from csrc/crc32_kernels.cu, and of the LZP function's
+# step a byte (hash: 3 shifts/xors and a mask; table load and store;
+# tests of the slot and the token; byte load and store; context shift
+# and or; loop tests): the serial state machine's work, which K5/K6's
+# windows repeat speculatively (a window's lanes all gather and test).
 OPS_PER_CRC_BYTE = 6
 OPS_PER_LZP_STEP = 18
+# Where each kernel stands: "ported" (its first CUDA form) or
+# "redesigned" (rebuilt for the card after it was ported).
+STATUS = {"K1": "redesigned", "K2": "redesigned", "K3a": "redesigned", "K3b": "redesigned",
+          "K3c": "redesigned", "K4": "ported", "K5": "redesigned", "K6": "redesigned"}
 # The kernels of each main path; a main phase fails if one of them did
 # not launch.
 DEFAULT_PATH = ("cm_encode", "cm_decode")
@@ -208,23 +221,85 @@ def phase_device(card: str) -> None:
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
 
-def phase_build(card: str) -> None:
+LATENCY_SO = os.path.join(ROOT, "_build", "sm_latency", "libsm_latency.so")
+
+
+def phase_build(card: str) -> dict:
+    """The port's kernels and host passes, and beside them (its own nvcc,
+    started first, so that the builds overlap) the pointer chase of
+    scripts/torch_sm_latency.cu that phase_latency runs."""
     from bzip3_tpu_torch.ops import build
 
+    os.makedirs(os.path.dirname(LATENCY_SO), exist_ok=True)
+    chase = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
+         os.path.join(ROOT, "scripts", "torch_sm_latency.cu"), "-o", LATENCY_SO],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.perf_counter()
-    build.load_kernels()
+    try:
+        build.load_kernels()
+    finally:
+        chase_log = chase.communicate(timeout=600)[0]
     t_kernels = time.perf_counter() - t0
+    _require(chase.returncode == 0, f"scripts/torch_sm_latency.cu: {chase_log}")
     t0 = time.perf_counter()
     build.load_host()
     t_host = time.perf_counter() - t0
     # registers, static shared memory and spills of every kernel (-Xptxas -v)
     res = build.kernel_resources()
     for k in ("cm_encode_kernel", "cm_decode_kernel", "cm_encode_resume_kernel",
-              "cm_decode_resume_kernel"):
+              "cm_decode_resume_kernel", "lzp_encode_kernel", "lzp_decode_kernel"):
         _require(k in res, f"no -Xptxas -v lines for {k}")
-    emit({"phase": "build", "card": card, "kernel_dir": build.KERNEL_DIR,
-          "kernels_s": round(t_kernels, 3), "host_s": round(t_host, 3),
-          "resources": res})
+    out = {"phase": "build", "card": card, "kernel_dir": build.KERNEL_DIR,
+           "kernels_s": round(t_kernels, 3), "host_s": round(t_host, 3), "resources": res}
+    emit(out)
+    return out
+
+
+def phase_latency(card: str) -> dict:
+    """The round trip of a dependent load on the card: one thread chases
+    a random single cycle through an 8 MiB table (L2-resident, as the
+    LZP kernels' tables: 1 MiB a row, 8 rows) and a 256 MiB one (mostly
+    device memory), past L1; CUDA events around each chase.  And the
+    cycles of one warp's dependent __match_any_sync."""
+    import ctypes
+
+    import torch
+
+    lib = ctypes.CDLL(LATENCY_SO)
+    lib.sm_chase.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_void_p,
+                             ctypes.c_void_p]
+    out = {"phase": "latency", "card": card}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    for name, mib, steps in (("l2", 8, 200_000), ("hbm", 256, 50_000)):
+        n = mib * MiB // 4
+        perm = torch.randperm(n, device="cuda", generator=gen)
+        nxt = torch.empty(n, dtype=torch.int64, device="cuda")
+        nxt[perm] = perm.roll(-1)  # one cycle through every entry
+        nxt = nxt.to(torch.int32)
+        del perm
+        res = torch.zeros(2, dtype=torch.int64, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        int(nxt.sum())  # brings the table into L2 as far as it fits
+        _require(lib.sm_chase(nxt.data_ptr(), 1000, 0, res.data_ptr(), stream) == 0,
+                 "sm_chase launch failed")
+        _, ms = _timed(lambda: lib.sm_chase(nxt.data_ptr(), steps, 0, res.data_ptr(), stream))
+        cycles = res.cpu().tolist()[0]
+        out[name] = {"table_mib": mib, "steps": steps, "ns": ms * 1e6 / steps,
+                     "cycles": cycles / steps}
+        del nxt
+    out["sm_clock_mhz"] = out["l2"]["cycles"] / out["l2"]["ns"] * 1e3
+    # a warp's dependent __match_any_sync, 32 distinct values and 32 equal
+    lib.sm_match_any.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p]
+    res = torch.zeros(3, dtype=torch.int64, device="cuda")
+    for seed in (1, 2):  # the first run warms up
+        _require(lib.sm_match_any(res.data_ptr(), seed, stream) == 0, "sm_match_any launch failed")
+    reps = lib.sm_latency_reps()
+    cyc = res.cpu().tolist()
+    out["match_any_cycles"] = {"distinct": cyc[0] / reps, "equal": cyc[1] / reps}
+    emit(out)
+    return out
 
 
 def phase_parity(card: str) -> dict:
@@ -558,7 +633,8 @@ def phase_main_shapes(card: str, data: bytes, bs: int, blocks: int,
 def _lzp_cases() -> list[bytes]:
     """The kinds of row of tests/test_lzp_pallas.py, each <= 4 KiB: the
     encoder's heur rejection, word + 0..3 extension, base-254 lengths,
-    0xF2 escapes with and without a live prediction, out_cap."""
+    0xF2 escapes with and without a live prediction, out_cap; then every
+    row of ``lzp_hazards()``."""
     rng = np.random.default_rng(42)
     text = (b"the quick brown fox jumps over the lazy dog. " * 40)[:1600]
     return [
@@ -574,13 +650,99 @@ def _lzp_cases() -> list[bytes]:
         b"",
         b"Z" * 71,
         b"Z" * 72,
-    ]
+    ] + [r for rows in lzp_hazards().values() for r in rows]
+
+
+def _lzp_hash(ctx: np.ndarray) -> np.ndarray:
+    return ((ctx >> 15) ^ ctx ^ (ctx >> 3)) & ((1 << 18) - 1)
+
+
+def lzp_hazards() -> dict[str, list[bytes]]:
+    """Rows of at most 4 KiB for the hazards of K5/K6's windows of 32
+    positions (one warp a row), by hazard: equal hashes inside a window
+    (periods under 32, and two contexts of one hash a few bytes apart),
+    a match that starts at each lane offset, an extension that stops at
+    scan_end, a heur rejection with a match a few positions after it,
+    0xF2 bytes in every lane with and without a live prediction, out_cap
+    reached at every lane offset and near its edge, and copies at distances
+    1..33 (which the decoder also cuts at max_out inside the copy)."""
+    rng = np.random.default_rng(43)
+
+    def rnd(k: int, alphabet=None) -> bytes:
+        if alphabet is None:
+            return rng.integers(0, 256, k, dtype=np.uint8).tobytes()
+        return bytes(rng.choice(np.frombuffer(alphabet, np.uint8), k))
+
+    # pairs of different contexts with one hash
+    ctx = rng.integers(0, 1 << 32, 1 << 20, dtype=np.uint64)
+    order = np.argsort(_lzp_hash(ctx), kind="stable")
+    hs = _lzp_hash(ctx)[order]
+    dup = np.nonzero((hs[1:] == hs[:-1]) & (ctx[order][1:] != ctx[order][:-1]))[0][:6]
+    pairs = [(int(ctx[order][j]).to_bytes(4, "big"), int(ctx[order][j + 1]).to_bytes(4, "big"))
+             for j in dup]
+    units = [a + rnd(6) + b + rnd(40) for a, b in pairs]
+    collide = b"".join(units) + rnd(30) + b"".join(units)
+
+    def at_lane(k: int) -> bytes:
+        c, x = rnd(4), rnd(60)
+        head = rnd(6) + c + x
+        # the second copy's first position is 4 + 32 * 4 + k: lane k of a window
+        return head + rnd(4 + 32 * 4 + k - 4 - len(head)) + c + x + rnd(80)
+
+    def heur(shift: int) -> bytes:
+        c, d = rnd(4), bytearray(rnd(100))
+        d2 = bytearray(d)
+        d2[5] ^= 0x55  # the candidate passes, the extension stops at 4 bytes
+        return rnd(10 + shift) + c + bytes(d) + rnd(20) + c + bytes(d2) + rnd(40)
+
+    tok = bytes([0xF2])
+
+    def escapes(k: int) -> bytes:
+        # a 44-byte match saves 42 bytes, then k units of an escaped 0xF2
+        # each add one: the output reaches out_cap near k = 36
+        c, x = rnd(4), rnd(44)
+        units = b"".join(rnd(1, b"\x05\x06") + b"\x01\x02\x03" + tok for _ in range(k))
+        return rnd(8) + c + x + rnd(20) + c + x + rnd(80) + units
+
+    return {
+        "equal_hashes": [(rnd(p) * (600 // p + 1))[:600] for p in (1, 2, 3, 5, 16, 31)]
+        + [collide],
+        "lane_offsets": [at_lane(k) for k in range(32)],
+        "scan_end": [b"Z" * n for n in (73, 74, 75, 76)]
+        + [(x * 4)[:n] for n, x in ((100, rnd(45)), (101, rnd(45)), (102, rnd(45)),
+                                   (103, rnd(45)), (1001, rnd(300)))],
+        "heur_then_match": [heur(s) for s in range(8)],
+        "token_lanes": [tok * 300, (tok + rnd(1)) * 200,
+                        b"".join(rnd(1, b"\x05\x06") + b"\x01\x02\x03" + tok for _ in range(120)),
+                        rnd(400, tok + b"\x01")],
+        "out_cap": [rnd(n) for n in range(72, 105)] + [escapes(k) for k in range(28, 46)],
+        "copy_distances": [(rnd(d) * (400 // d + 1))[:400] for d in range(1, 34)],
+    }
+
+
+def lzp_streams(encoded: list[bytes]) -> list[bytes]:
+    """Decoder inputs beside the encoder's own streams: each stream cut
+    right after each of its first 0xF2 bytes (a truncated token where the
+    prediction is live), a long match's length cut inside its run of
+    254s, and arbitrary streams of 0xF2, 254, 255 and two other bytes."""
+    rng = np.random.default_rng(44)
+    out = []
+    for e in encoded:
+        cuts = [j + 1 for j in range(4, len(e)) if e[j] == 0xF2][:3]
+        out += [e[:c] for c in cuts]
+        k = e.find(bytes([0xF2, 254]), 4)
+        if k >= 0:
+            out.append(e[: k + 2])
+    alphabet = np.array([0xF2, 254, 255, 0x61, 0x62], np.uint8)
+    out += [bytes(rng.choice(alphabet, n)) for n in (4, 40, 300, 1000)]
+    return out
 
 
 def phase_parity_prepass(card: str) -> dict:
     """K4, K5 and K6 against their plain versions on the same rows, byte
-    for byte; K4's CRCs against the host C++; step latency of each on
-    one row (one thread per row or lane: launch time over steps)."""
+    for byte (K5/K6 on every window hazard too); K4's CRCs against the
+    host C++; the time a step of each on one row (K4: one thread; K5/K6:
+    one warp over windows of 32 literals)."""
     import torch
     from bzip3_tpu_torch.ops import host
     from bzip3_tpu_torch.ops.device import crc32, crc32_cuda, lzp, lzp_cuda
@@ -592,22 +754,24 @@ def phase_parity_prepass(card: str) -> dict:
     d_gpu, l_gpu = d_cpu.cuda(), l_cpu.cuda()
     before = launch_counts()
 
-    # K4: lane states at the device lane count (one byte a lane here)
-    # and at 128 lanes (32-byte segments), then whole CRCs.
+    # K4 on the first 12 rows: lane states at the device lane count (one
+    # byte a lane here) and at 128 lanes (32-byte segments), then whole CRCs.
+    c_cpu, cl_cpu, c_gpu, cl_gpu = d_cpu[:12], l_cpu[:12], d_gpu[:12], l_gpu[:12]
     k4_err, k4_plain_ms = 0, 0.0
     for lanes in (crc32.LANES, 128):
         t0 = time.perf_counter()
-        want = crc32.crc_lane_scan(d_cpu, l_cpu, lanes)
+        want = crc32.crc_lane_scan(c_cpu, cl_cpu, lanes)
         k4_plain_ms += (time.perf_counter() - t0) * 1e3
-        got = crc32_cuda.crc_lane_scan(d_gpu, l_gpu, lanes).cpu()
+        got = crc32_cuda.crc_lane_scan(c_gpu, cl_gpu, lanes).cpu()
         _require(got.shape == want.shape, (got.shape, want.shape))
         k4_err = max(k4_err, int((got - want).abs().max()))
     _require(k4_err == 0, "K4 differs from the plain lane scan")
-    crcs = crc32_cuda.crc32_batch(d_gpu, l_gpu).cpu().tolist()
-    _require(crcs == [host.crc32(r) for r in rows], "K4 CRCs differ from the host C++")
-    k4_ms = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(d_gpu, l_gpu, crc32.LANES), 5)
+    crcs = crc32_cuda.crc32_batch(c_gpu, cl_gpu).cpu().tolist()
+    _require(crcs == [host.crc32(r) for r in rows[:12]], "K4 CRCs differ from the host C++")
+    k4_ms = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(c_gpu, cl_gpu, crc32.LANES), 5)
 
-    # K5 against the plain encoder.
+    # K5 against the plain encoder: the smoke's LZP rows and every window
+    # hazard (lzp_hazards).
     t0 = time.perf_counter()
     p_out, p_lens = lzp.lzp_encode_batch(d_cpu, l_cpu)
     k5_plain_ms = (time.perf_counter() - t0) * 1e3
@@ -615,38 +779,40 @@ def phase_parity_prepass(card: str) -> dict:
     k_out, k_lens = k_out.cpu().numpy(), k_lens.cpu().numpy()
     p_out, p_lens = p_out.numpy(), p_lens.numpy()
     _require((k_lens == p_lens).all(), (k_lens.tolist(), p_lens.tolist()))
-    _require(int((p_lens > 0).sum()) >= 6, f"LZP applied to too few rows: {p_lens.tolist()}")
+    _require(int((p_lens > 0).sum()) >= len(rows) // 2, f"LZP applied to too few rows: {p_lens.tolist()}")
     k5_err = max(_row_diff(k_out[i, : max(0, p_lens[i])], p_out[i, : max(0, p_lens[i])])
                  for i in range(len(rows)))
     _require(k5_err == 0, "K5 differs from the plain encoder")
     k5_ms = _cuda_ms(lambda: lzp_cuda.lzp_encode(d_gpu, l_gpu), 3)
 
-    # K6 on the encoded rows, a stream cut after its first token, and
-    # rows of length 0 and 3; max_out cuts the longest row short.
+    # K6 on the encoded rows, streams cut inside tokens, arbitrary streams
+    # (lzp_streams) and rows of length 0 and 3; at a max_out past every
+    # row and at two that cut rows inside their copies.
     enc = [p_out[i, : p_lens[i]].tobytes() for i in range(len(rows)) if p_lens[i] > 0]
-    first = next(e for e in enc if 0xF2 in e[4:])
-    enc += [first[: first.index(0xF2, 4) + 1], b"", b"abc"]
+    enc += lzp_streams(enc) + [b"", b"abc"]
     e_arr, e_lens = _pad(enc, max(map(len, enc)))
     e_cpu, el_cpu = torch.from_numpy(e_arr), torch.from_numpy(e_lens)
     e_gpu, el_gpu = e_cpu.cuda(), el_cpu.cuda()
-    max_out = n - 64
-    t0 = time.perf_counter()
-    q_out, q_lens = lzp.lzp_decode_batch(e_cpu, el_cpu, max_out)
-    k6_plain_ms = (time.perf_counter() - t0) * 1e3
-    g_out, g_lens = lzp_cuda.lzp_decode(e_gpu, el_gpu, max_out)
-    g_out, g_lens = g_out.cpu().numpy(), g_lens.cpu().numpy()
-    q_out, q_lens = q_out.numpy(), q_lens.numpy()
-    _require((g_lens == q_lens).all(), (g_lens.tolist(), q_lens.tolist()))
-    _require(q_lens[-3:].tolist() == [-1, -1, -1] and (q_lens[:-3] > 0).all(), q_lens.tolist())
-    _require(int(q_lens.max()) == max_out, "no row was cut at max_out")
-    k6_err = max(_row_diff(g_out[i, : max(0, q_lens[i])], q_out[i, : max(0, q_lens[i])])
-                 for i in range(len(enc)))
+    k6_err, k6_plain_ms, cut_lens = 0, 0.0, {}
+    for max_out in (n + 64, 131, 37):
+        t0 = time.perf_counter()
+        q_out, q_lens = lzp.lzp_decode_batch(e_cpu, el_cpu, max_out)
+        k6_plain_ms += (time.perf_counter() - t0) * 1e3
+        g_out, g_lens = lzp_cuda.lzp_decode(e_gpu, el_gpu, max_out)
+        g_out, g_lens = g_out.cpu().numpy(), g_lens.cpu().numpy()
+        q_out, q_lens = q_out.numpy(), q_lens.numpy()
+        _require((g_lens == q_lens).all(), (max_out, g_lens.tolist(), q_lens.tolist()))
+        _require(q_lens[-2:].tolist() == [-1, -1] and (q_lens < 0).sum() > 2, q_lens.tolist())
+        _require(max_out > n or int(q_lens.max()) == max_out, f"no row was cut at {max_out}")
+        k6_err = max(k6_err, max(_row_diff(g_out[i, : max(0, q_lens[i])],
+                                           q_out[i, : max(0, q_lens[i])]) for i in range(len(enc))))
+        cut_lens[max_out] = q_lens.tolist()
     _require(k6_err == 0, "K6 differs from the plain decoder")
-    k6_ms = _cuda_ms(lambda: lzp_cuda.lzp_decode(e_gpu, el_gpu, max_out), 3)
+    k6_ms = _cuda_ms(lambda: lzp_cuda.lzp_decode(e_gpu, el_gpu, n + 64), 3)
     parity_launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
 
-    # Step latency, one thread on one row: K4 on a 64 KiB lane; K5 and
-    # K6 on 1 MiB of random bytes without 0xF2, a literal at every step
+    # Step latency on one row: K4 on a 64 KiB lane (one thread); K5 and
+    # K6 (one warp) on 1 MiB of random bytes without 0xF2, all literals
     # (K5 stops at out_cap after MiB - 8 of them, K6 decodes all MiB).
     rng = np.random.default_rng(13)
     lane = torch.from_numpy(rng.integers(0, 256, (1, 64 << 10), dtype=np.uint8)).cuda()
@@ -663,13 +829,14 @@ def phase_parity_prepass(card: str) -> dict:
     k6_step_ns = _cuda_ms(lambda: lzp_cuda.lzp_decode(big, big_len, MiB), 2) * 1e6 / MiB
     out = {
         "phase": "parity_prepass", "card": card, "rows": len(rows), "width": n, "tolerance": 0,
-        "k4": {"max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "shape": [len(rows), n],
+        "k4": {"max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "shape": [12, n],
                "plain_device": "cpu", "crcs_equal_host": True, "step_ns": k4_step_ns},
         "k5": {"max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms, "shape": [len(rows), n],
                "plain_device": "cpu", "out_lens": p_lens.tolist(), "step_ns": k5_step_ns},
         "k6": {"max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
-               "shape": list(e_arr.shape), "plain_device": "cpu", "out_lens": q_lens.tolist(),
-               "max_out": max_out, "step_ns": k6_step_ns},
+               "shape": list(e_arr.shape), "plain_device": "cpu", "out_lens": cut_lens,
+               "step_ns": k6_step_ns},
+        "hazards": {k: len(v) for k, v in lzp_hazards().items()},
         "parity_launches": parity_launches,
     }
     emit(out)
@@ -753,10 +920,14 @@ def phase_main_prepass(card: str, data: bytes, bs: int, blocks: int) -> dict:
     return out
 
 
-def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int) -> dict:
+def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int, lat: dict) -> dict:
     """K4, K5 and K6 on the prepass phase's own [blocks, bs] rows, timed
     with CUDA events and checked in full against the host C++: K4's
-    CRCs, K5 on the post-RLE rows, K6 back to K5's input."""
+    CRCs, K5 on the post-RLE rows, K6 back to K5's input.  K5 and K6
+    count each row's windows and events (``stats``); beside each
+    kernel's bound by bytes, the design's latency bound: the row with
+    the most windows, at ``lat``'s L2 round trip for each dependent
+    table read (two a K5 window, one a K6 window that reads the table)."""
     import torch
     from bzip3_tpu_torch.ops import host
     from bzip3_tpu_torch.ops.device import crc32, crc32_cuda, lzp_cuda, rle
@@ -774,7 +945,9 @@ def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int) -> dict:
     cur = torch.where(use_rle[:, None], r_out[:, :bs], orig)
     cur_lens = torch.where(use_rle, r_lens, orig_lens)
     del r_out
-    (l_out, l_lens), k5_ms = _timed(lambda: lzp_cuda.lzp_encode(cur, cur_lens))
+    s5 = torch.zeros((blocks, lzp_cuda.STATS), dtype=torch.int32, device="cuda")
+    s6 = torch.zeros_like(s5)
+    (l_out, l_lens), k5_ms = _timed(lambda: lzp_cuda.lzp_encode(cur, cur_lens, stats=s5))
     cur_np, cl = cur.cpu().numpy(), cur_lens.cpu().tolist()
     l_np, ll = l_out.cpu().numpy(), l_lens.cpu().tolist()
     for i in range(blocks):
@@ -782,18 +955,21 @@ def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int) -> dict:
         _require(ll[i] == (-1 if want is None else len(want)), f"K5 length, row {i}")
         _require(want is None or l_np[i, : ll[i]].tobytes() == want, f"K5 bytes, row {i}")
     (d_out, d_lens), k6_ms = _timed(
-        lambda: lzp_cuda.lzp_decode(l_out, l_lens.clamp(min=0), bs))
+        lambda: lzp_cuda.lzp_decode(l_out, l_lens.clamp(min=0), bs, stats=s6))
     d_np, dl = d_out.cpu().numpy(), d_lens.cpu().tolist()
     for i in range(blocks):
         if ll[i] >= 0:
             _require(dl[i] == cl[i] and (d_np[i, : dl[i]] == cur_np[i, : cl[i]]).all(),
                      f"K6(K5(x)) differs from x, row {i}")
-    # Serial bound of one thread per row: the longest row run alone.
-    i5, i6 = int(np.argmax(cl)), int(np.argmax(dl))
-    _, k5_row_ms = _timed(lambda: lzp_cuda.lzp_encode(cur[i5 : i5 + 1], cur_lens[i5 : i5 + 1]))
-    _, k6_row_ms = _timed(
-        lambda: lzp_cuda.lzp_decode(l_out[i6 : i6 + 1], l_lens[i6 : i6 + 1].clamp(min=0), bs))
-    k5_steps, k6_steps = cl[i5], max(dl[i6], 1)
+    s5, s6 = s5.cpu().tolist(), s6.cpu().tolist()
+    rt = lat["l2"]["ns"]
+    k5_lat = max(2 * r[0] for r in s5) * rt * 1e-6
+    k6_lat = max(r[2] for i, r in enumerate(s6) if ll[i] >= 0) * rt * 1e-6
+    lz_out = [max(0, v) for v in ll]
+    dec_out = [cl[i] for i in range(blocks) if ll[i] >= 0]
+    k5_bytes = sum(cl) + sum(lz_out) + 8 * blocks
+    k6_bytes = sum(lz_out) + sum(dec_out) + 8 * blocks
+    k5_steps, k6_steps = max(cl), max(dec_out, default=1)
     out = {
         "phase": "prepass_shapes", "card": card, "shape": [blocks, bs],
         "row_lens": lens.tolist(), "post_rle_lens": cl, "lzp_lens": ll, "crcs_equal_host": True,
@@ -801,7 +977,13 @@ def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int) -> dict:
         "k5_ms": k5_ms, "k6_ms": k6_ms, "k5_equal_host": True, "k6_round_trip": True,
         "k5_ns_per_byte_step": k5_ms * 1e6 / k5_steps, "k6_ns_per_byte_step": k6_ms * 1e6 / k6_steps,
         "k5_steps": k5_steps, "k6_steps": k6_steps,
-        "k5_longest_row_alone_ms": k5_row_ms, "k6_longest_row_alone_ms": k6_row_ms,
+        "k5_stats": {"per_row": s5, "cols": ["windows", "events", "extension_steps", "matches", "us"]},
+        "k6_stats": {"per_row": s6, "cols": ["windows", "events", "table_windows", "copy_steps", "us"]},
+        "l2_round_trip_ns": rt,
+        "k5_bytes": k5_bytes, "k6_bytes": k6_bytes,
+        "k5_bytes_bound_ms": k5_bytes / PEAK_BYTES_PER_S * 1e3,
+        "k6_bytes_bound_ms": k6_bytes / PEAK_BYTES_PER_S * 1e3,
+        "k5_latency_bound_ms": k5_lat, "k6_latency_bound_ms": k6_lat,
     }
     emit(out)
     return out
@@ -1112,6 +1294,7 @@ def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict
         rows.append({
             "name": f"{kid} {fn}", "route": "cuda",
             "source": "bzip3_tpu_torch/csrc/cm_kernels.cu", "replaces": replaces,
+            "status": STATUS[kid],
             "launches": launches,
             "max_abs_err": max(resume[k]["max_abs_err"], prefix_err[kid]),
             "ms": ph[f"{k}_ms"], "plain_ms": resume[k]["plain_ms"],
@@ -1131,7 +1314,7 @@ def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict
 
 
 def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: dict,
-                 pshapes: dict, resume: dict, b32: dict, over: dict) -> dict:
+                 pshapes: dict, resume: dict, b32: dict, over: dict, resources: dict) -> dict:
     """The kernels of the main paths: launches from the main phases
     (K1/K2 from the default path, K4-K6 from the device prepass chain,
     K3a-K3c from main_b32 and main_oversize), times at their rows, plain
@@ -1152,6 +1335,7 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
         rows.append({
             "name": f"{kid} {fn}", "route": "cuda",
             "source": "bzip3_tpu_torch/csrc/cm_kernels.cu", "replaces": src_line,
+            "status": STATUS[kid],
             "launches": main["launches"][key],
             "max_abs_err": max(parity[k]["max_abs_err"], shapes[f"{k}_prefix_max_abs_err"]),
             "ms": shapes[f"{k}_ms"], "plain_ms": parity[k]["plain_ms"],
@@ -1165,33 +1349,28 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
         })
 
     k_rows, raw = pshapes["shape"][0], pshapes["row_lens"]
-    mid, lz = pshapes["post_rle_lens"], pshapes["lzp_lens"]
-    lz_out = [max(0, v) for v in lz]
-    dec_out = [mid[i] for i in range(k_rows) if lz[i] >= 0]
-    # serial bounds: K4's segment at one lane's measured step latency;
-    # K5/K6 the wave's longest row run alone (one thread per row)
-    for kid, key, fn, src, src_line, nbytes, ops, serial_ms in (
+    mid = pshapes["post_rle_lens"]
+    dec_out = [mid[i] for i in range(k_rows) if pshapes["lzp_lens"][i] >= 0]
+    for kid, key, fn, src, src_line, nbytes, ops in (
         # K4: every byte read once, [K, L] int32 lane states written
         ("K4", "crc_lanes", "crc_lane_kernel", "crc32_kernels.cu",
          "bzip3_tpu/ops/device/crc32_pallas.py:45",
-         sum(raw) + 4 * k_rows * pshapes["lanes"] + 4 * k_rows,
-         OPS_PER_CRC_BYTE * sum(raw), pshapes["seg"] * pparity["k4"]["step_ns"] * 1e-6),
+         sum(raw) + 4 * k_rows * pshapes["lanes"] + 4 * k_rows, OPS_PER_CRC_BYTE * sum(raw)),
         # K5: post-RLE rows read, LZP streams written; one step a byte
         ("K5", "lzp_encode", "lzp_encode_kernel", "lzp_kernels.cu",
-         "bzip3_tpu/ops/device/lzp_pallas.py:135",
-         sum(mid) + sum(lz_out) + 8 * k_rows, OPS_PER_LZP_STEP * sum(mid),
-         pshapes["k5_longest_row_alone_ms"]),
+         "bzip3_tpu/ops/device/lzp_pallas.py:135", pshapes["k5_bytes"],
+         OPS_PER_LZP_STEP * sum(mid)),
         # K6: the LZP streams read, the rows they came from written
         ("K6", "lzp_decode", "lzp_decode_kernel", "lzp_kernels.cu",
-         "bzip3_tpu/ops/device/lzp_pallas.py:285",
-         sum(lz_out) + sum(dec_out) + 8 * k_rows, OPS_PER_LZP_STEP * sum(dec_out),
-         pshapes["k6_longest_row_alone_ms"]),
+         "bzip3_tpu/ops/device/lzp_pallas.py:285", pshapes["k6_bytes"],
+         OPS_PER_LZP_STEP * sum(dec_out)),
     ):
         k = kid.lower()
         bound_ms, bound_by = _bound(nbytes, ops)
-        rows.append({
+        row = {
             "name": f"{kid} {fn}", "route": "cuda",
             "source": f"bzip3_tpu_torch/csrc/{src}", "replaces": src_line,
+            "status": STATUS[kid],
             "launches": pmain["launches"][key],
             "max_abs_err": pparity[k]["max_abs_err"],
             "ms": pshapes[f"{k}_ms"], "plain_ms": pparity[k]["plain_ms"],
@@ -1200,9 +1379,18 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
             "plain_shape": pparity[k]["shape"],
             "plain_device": pparity[k]["plain_device"],
             "kernel_ms_at_plain_shape": pparity[k]["ms"],
-            "serial_bound_ms": serial_ms,
             "ns_per_step_one_row": pparity[k]["step_ns"],
-        })
+            "registers": resources.get(fn, {}).get("registers"),
+        }
+        if kid == "K4":  # its segment at one lane's measured step latency
+            row["serial_bound_ms"] = pshapes["seg"] * pparity["k4"]["step_ns"] * 1e-6
+        else:  # the busiest row's counted windows at the L2 round trip
+            st = pshapes[f"{k}_stats"]["per_row"]
+            busiest = max(range(k_rows), key=lambda i: st[i][0])
+            row.update({"latency_bound_ms": pshapes[f"{k}_latency_bound_ms"],
+                        "l2_round_trip_ns": pshapes["l2_round_trip_ns"],
+                        "busiest_row": dict(zip(pshapes[f"{k}_stats"]["cols"], st[busiest]))})
+        rows.append(row)
     rows[2:2] = _resume_rows(parity, resume, b32, over)
     return {"kernels": rows}
 
@@ -1224,7 +1412,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     phase_device(smi)
-    phase_build(smi)
+    built = phase_build(smi)
+    lat = phase_latency(smi)
     parity = phase_parity(smi)
     pparity = phase_parity_prepass(smi)
     phase_golden(smi)
@@ -1235,12 +1424,13 @@ def main() -> int:
     # 4 text blocks, 3 of log lines, 1 sparse: LZP and RLE both kept
     pdata = data[: 4 * bs] + log_corpus(3 * bs, seed=1) + sparse_block(bs, seed=2)
     pmain = phase_main_prepass(smi, pdata, bs, blocks)
-    pshapes = phase_prepass_shapes(smi, pdata, bs, blocks)
+    pshapes = phase_prepass_shapes(smi, pdata, bs, blocks, lat)
     resume = phase_parity_resume(smi)
     log = pdata[4 * bs : 7 * bs]  # 48 MiB of log lines
     b32 = phase_main_b32(smi, data[: 2 * bs] + log[: 2 * bs])
     over = phase_main_oversize(smi, data[: 6 * bs] + log, b32)
-    emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over))
+    emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over,
+                      built["resources"]))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,18 @@
 // A host emulation of the CUDA built-ins that bzip3_tpu_torch/csrc/
-// cm_kernels.cu uses, so that tests/test_torch_cm_emulated.py can run the
-// kernels' own source on the CPU: one std::thread per CUDA thread, up to
-// kEmuBlocks blocks at a time, each with its own shared memory and
-// barriers; __syncthreads, __syncwarp and the named barriers (bar.sync /
-// bar.arrive with a thread count) as counting barriers.  A barrier whose
-// count differs between arrivals, or that waits for 20 s, aborts the
-// process.
+// cm_kernels.cu and lzp_kernels.cu use, so that tests/test_torch_cm_emulated.py
+// and tests/test_torch_lzp_emulated.py can run the kernels' own source on
+// the CPU: one std::thread per CUDA thread, up to kEmuBlocks blocks at a
+// time, each with its own shared memory and barriers; __syncthreads,
+// __syncwarp and the named barriers (bar.sync / bar.arrive with a thread
+// count) as counting barriers.  A barrier whose count differs between
+// arrivals, or that waits for 20 s, aborts the process.  The warp
+// collectives (__shfl_sync, __shfl_up_sync, __ballot_sync,
+// __match_any_sync) take the full mask only: each lane posts its value
+// in its warp's slots, the warp meets, each lane reads, the warp meets
+// again (a yielding barrier of its own).
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <chrono>
 #include <condition_variable>
 #include <cstdint>
@@ -43,6 +48,8 @@ inline int cudaGetLastError() { return 0; }
 inline const char *cudaGetErrorString(cudaError_t) { return ""; }
 
 inline uint32_t __clz(uint32_t x) { return x ? __builtin_clz(x) : 32; }
+inline int __ffs(uint32_t x) { return __builtin_ffs((int)x); }
+inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 inline uint32_t __funnelshift_lc(uint32_t lo, uint32_t hi, uint32_t s) {
     s = s > 32 ? 32 : s;
     return (uint32_t)((((uint64_t)hi << 32 | lo) << s) >> 32);
@@ -85,17 +92,90 @@ struct EmuBarrier {
         }
     }
 };
+// The warp collectives' barrier: a counter and a generation, waited on
+// by yielding (collectives come a few a window, so a condition variable's
+// wake-ups would dominate); 20 s of waiting aborts.
+struct EmuSpin {
+    std::atomic<int> arrived{0};
+    std::atomic<long> gen{0};
+    void arrive() {
+        const long g = gen.load(std::memory_order_acquire);
+        if (arrived.fetch_add(1, std::memory_order_acq_rel) == 31) {
+            arrived.store(0, std::memory_order_relaxed);
+            gen.fetch_add(1, std::memory_order_release);
+            return;
+        }
+        const auto t0 = std::chrono::steady_clock::now();
+        for (long k = 1; gen.load(std::memory_order_acquire) == g; ++k) {
+            std::this_thread::yield();
+            if (k % 4096 == 0 && std::chrono::steady_clock::now() - t0 > std::chrono::seconds(20)) {
+                fprintf(stderr, "emu: warp collective deadlock\n");
+                abort();
+            }
+        }
+    }
+};
 // The block's shared memory (the kernels' `smem`) and barriers, set in
 // each thread by emu_launch.
 extern thread_local unsigned char *smem;
 extern thread_local EmuBarrier *emu_bars, *emu_warps;
+inline thread_local EmuSpin *emu_spin;
 inline void emu_bar(int id, int count, bool wait) { emu_bars[id].arrive(count, wait); }
 inline void __syncthreads() { emu_bar(0, blockDim.x, true); }
-inline void __syncwarp() { emu_warps[threadIdx.x >> 5].arrive(32, true); }
+// A block of one warp (the LZP kernels) meets on the warp collectives'
+// yielding barrier, so that its lanes do not wait on two kinds.
+inline void __syncwarp() {
+    if (blockDim.x == 32)
+        emu_spin->arrive();
+    else
+        emu_warps[threadIdx.x >> 5].arrive(32, true);
+}
+
+// The slots of the thread's warp (set by emu_launch).
+inline thread_local uint32_t *emu_slots;
+
+inline uint32_t emu_lane() { return threadIdx.x & 31u; }
+template <class F> inline uint32_t emu_collect(uint32_t mask, uint32_t v, F read) {
+    if (mask != 0xFFFFFFFFu) {
+        fprintf(stderr, "emu: warp collective with mask %08x\n", mask);
+        abort();
+    }
+    emu_slots[emu_lane()] = v;
+    emu_spin->arrive();
+    const uint32_t r = read(emu_slots);
+    emu_spin->arrive();
+    return r;
+}
+template <class T> T __shfl_sync(uint32_t mask, T v, int src) {
+    static_assert(sizeof(T) == 4, "32-bit shuffles only");
+    return (T)emu_collect(mask, (uint32_t)v, [&](const uint32_t *s) { return s[src & 31]; });
+}
+template <class T> T __shfl_up_sync(uint32_t mask, T v, unsigned delta) {
+    static_assert(sizeof(T) == 4, "32-bit shuffles only");
+    const uint32_t l = emu_lane();
+    return (T)emu_collect(mask, (uint32_t)v,
+                          [&](const uint32_t *s) { return l >= delta ? s[l - delta] : s[l]; });
+}
+inline uint32_t __ballot_sync(uint32_t mask, bool pred) {
+    return emu_collect(mask, pred ? 1u : 0u, [](const uint32_t *s) {
+        uint32_t r = 0;
+        for (int k = 0; k < 32; ++k) r |= s[k] << k;
+        return r;
+    });
+}
+inline uint32_t __match_any_sync(uint32_t mask, uint32_t v) {
+    return emu_collect(mask, v, [&](const uint32_t *s) {
+        uint32_t r = 0;
+        for (int k = 0; k < 32; ++k) r |= (uint32_t)(s[k] == v) << k;
+        return r;
+    });
+}
 
 struct EmuBlock {
     alignas(16) unsigned char smem[232448];  // an H100 block's most
     EmuBarrier bars[16], warps[32];
+    uint32_t slots[32][32];
+    EmuSpin spins[32];
 };
 constexpr int kEmuBlocks = 4;
 
@@ -114,6 +194,8 @@ inline void emu_launch(int rows, const std::function<void()> &body) {
                     smem = b->smem;
                     emu_bars = b->bars;
                     emu_warps = b->warps;
+                    emu_slots = b->slots[t >> 5];
+                    emu_spin = &b->spins[t >> 5];
                     body();
                 });
         }

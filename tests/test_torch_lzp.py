@@ -129,3 +129,19 @@ def test_wrappers_take_plain_path_for_cpu_tensors(cases, encoded):
         lzp_cuda.lzp_decode(out, olens, 3)
     with pytest.raises(TypeError):
         lzp_cuda.lzp_encode(torch.from_numpy(data).int(), torch.from_numpy(lens))
+
+
+def test_wrapper_counters_need_the_card(cases):
+    """``stats`` (K5/K6's counters of their windows) is filled only by the
+    kernels: with CPU tensors, or of the wrong shape, the wrappers raise
+    rather than return counts the plain version did not make."""
+    data, lens = _pad(cases[:3], 1600)
+    d, l = torch.from_numpy(data), torch.from_numpy(lens)
+    stats = torch.zeros((3, lzp_cuda.STATS), dtype=torch.int32)
+    with pytest.raises(ValueError, match="stats"):
+        lzp_cuda.lzp_encode(d, l, stats=stats)
+    with pytest.raises(ValueError, match="stats"):
+        lzp_cuda.lzp_decode(d, l, 1600, stats=stats)
+    with pytest.raises(TypeError):
+        lzp_cuda.lzp_encode(d, l, stats=stats.long())
+    assert lzp_cuda.LAUNCHES == {"lzp_encode": 0, "lzp_decode": 0}

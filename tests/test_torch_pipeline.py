@@ -14,6 +14,7 @@ JAX package's.
 """
 
 import io
+import struct
 
 import numpy as np
 import pytest
@@ -23,7 +24,7 @@ from bzip3_tpu.models.block_codec import encode_block
 from bzip3_tpu.pipeline import DevicePipeline as JaxPipeline
 from bzip3_tpu_torch import compress, compress_file, decompress, decompress_file
 from bzip3_tpu_torch.engines import DeviceEngine
-from bzip3_tpu_torch.errors import BZ3_ERR_CRC, Bz3Error
+from bzip3_tpu_torch.errors import BZ3_ERR_CRC, BZ3_ERR_MALFORMED_HEADER, Bz3Error
 from bzip3_tpu_torch.pipeline import DevicePipeline
 from bzip3_tpu_torch.models.block_codec import parse_block_header
 
@@ -181,6 +182,54 @@ def test_device_prepass_corrupted_lzp_payload_raises(prepass_engine, prepass_blo
     with pytest.raises(Bz3Error) as err:
         prepass_engine.decode_blocks([(bytes(bad), len(blocks[i]))], BS)
     assert err.value.code == BZ3_ERR_CRC
+
+
+def _raised(decode, pairs) -> int:
+    """The error code that ``decode(pairs)`` raises (either package's Bz3Error)."""
+    with pytest.raises(Exception) as err:
+        decode(pairs)
+    return err.value.code
+
+
+# Decode errors come in the JAX DevicePipeline's order: every header is
+# checked before any literal's CRC (block 0 here, a bad CRC, against
+# block 1's BWT index past its size), on every switch of the port.
+SWITCHES = pytest.mark.parametrize(
+    "prepass,crc_verify", [(False, False), (False, True), (True, False), (True, True)]
+)
+
+
+@SWITCHES
+def test_header_errors_precede_literal_crc(prepass, crc_verify):
+    bs = 65536
+    literal = struct.pack("<Ii", 0xDEADBEEF, -1) + b"abc"
+    coded = struct.pack("<IiB", 0, 5000, 0) + bytes(range(100))
+    pairs = [(literal, 3), (coded, 200)]
+    want = _raised(JaxPipeline(bs).decode_blocks, pairs)
+    assert want == BZ3_ERR_MALFORMED_HEADER
+    eng = DeviceEngine(device="cpu", device_prepass=prepass, device_crc_verify=crc_verify)
+    assert _raised(lambda p: eng.decode_blocks(p, bs), pairs) == want
+
+
+@pytest.fixture(scope="module")
+def bad_literal(port_blocks, blocks):
+    """The fixture's blocks with the literal's (block 3's) CRC broken, and
+    the error the JAX full chain raises on them (the decode of jax_full,
+    so nothing compiles again)."""
+    bad = list(port_blocks)
+    bad[3] = bytes([bad[3][0] ^ 1]) + bad[3][1:]
+    pairs = [(e, len(b)) for e, b in zip(bad, blocks)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BZ3_TPU_DEVICE_PREPASS", "1")
+        return pairs, _raised(JaxPipeline(BS).decode_blocks, pairs)
+
+
+@SWITCHES
+def test_literal_crc_error_when_headers_are_sound(bad_literal, prepass, crc_verify):
+    pairs, want = bad_literal
+    assert want == BZ3_ERR_CRC
+    eng = DeviceEngine(device="cpu", device_prepass=prepass, device_crc_verify=crc_verify)
+    assert _raised(lambda p: eng.decode_blocks(p, BS), pairs) == want
 
 
 @pytest.fixture(scope="module")
