@@ -27,16 +27,23 @@ import torch
 
 from . import gf2
 
-# Lanes of the device scan: 8 rows x 32768 lanes is 262,144 threads,
-# 1,986 per SM of an H100's 132 (the TPU kernel's 2048 lanes would keep
-# ~124 threads per SM busy).  16 MiB rows give 512-byte segments.
+# Lanes of the plain scan on the CPU, a Python loop of ``seg`` steps
+# over [K, LANES] tensors: 64 KiB rows take 2 steps.  The kernel K4 takes
+# its own count (``kernel_lanes``); any count gives the same CRC.
 LANES = 32768
+# K4 runs one CTA of 512 threads a lane, one CTA an SM (its tables fill
+# 136 KB of shared memory): a lane is at least MIN_SEG bytes, so that a
+# CTA's set-up and fold stay small beside its loads.
+MIN_SEG = 64 << 10
 
 _TABLE = torch.from_numpy(gf2.CRC_TABLE.astype(np.int64))
 _BITS = torch.arange(32, dtype=torch.int64)
 
 # (lanes, seg, device) -> [lanes, 32] lane-combine bank;
-# (max_bits, device) -> [max_bits, 32] unwind bank.
+# (max_bits, device) -> [max_bits, 32] unwind bank; (device,) -> the
+# bit positions 0..31; (padded_n, "init") -> init 1 shifted past
+# padded_n zero bytes.  Kept, so that a call copies nothing from the
+# host (each copy would wait for the card's queue).
 _BANKS: dict = {}
 
 
@@ -45,6 +52,16 @@ def lane_layout(n: int, lanes: int) -> tuple[int, int]:
     seg = ceil(N / lanes) bytes per lane (the last lanes read zeros)."""
     lanes = max(1, min(lanes, n))
     return lanes, -(-n // lanes)
+
+
+def kernel_lanes(n: int, k: int, sms: int) -> int:
+    """K4's lane count for K rows of N bytes on a card of ``sms`` SMs:
+    about one CTA an SM over all rows (sms // K lanes a row, at least 1)
+    and no lane shorter than MIN_SEG bytes, before ``lane_layout``'s cap.
+    8 rows of 16 MiB on 132 SMs: 16 lanes of 1 MiB, 128 CTAs; one such
+    row: 132 lanes."""
+    want = min(max(1, sms // max(1, k)), max(1, -(-n // MIN_SEG)))
+    return lane_layout(n, want)[0]
 
 
 def crc_lane_scan(rows: torch.Tensor, lengths: torch.Tensor, lanes: int) -> torch.Tensor:
@@ -82,7 +99,7 @@ def _xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
 def _apply_bank(bank: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Apply 32x32 GF(2) matrices (``bank`` [..., 32] int64 columns,
     broadcast against v[..., None]) to the states v [...]."""
-    bits = (v[..., None] >> _BITS.to(v.device)) & 1
+    bits = (v[..., None] >> _bank((), lambda: _BITS.to(v.device), v.device)) & 1
     return _xor_reduce(torch.where(bits.bool(), bank, 0), -1)
 
 
@@ -118,7 +135,7 @@ def crc32_from_lanes(states: torch.Tensor, n: int, lengths: torch.Tensor) -> tor
     comb = _bank((lanes, seg), lambda: _lane_combine_bank(lanes, seg, dev), dev)
     merged = _xor_reduce(_apply_bank(comb, states), 1)
     # init 1 shifted past every padded byte is a constant
-    crc = merged ^ gf2._apply(gf2.shift_matrix(padded_n), 1)
+    crc = merged ^ _bank((padded_n,), lambda: gf2._apply(gf2.shift_matrix(padded_n), 1), "init")
     pad = padded_n - lengths.long().clamp(0, padded_n)
     max_bits = max(1, padded_n.bit_length())
     unwind = _bank(
@@ -126,9 +143,15 @@ def crc32_from_lanes(states: torch.Tensor, n: int, lengths: torch.Tensor) -> tor
         lambda: torch.from_numpy(gf2.unshift_pow2_bank(max_bits).astype(np.int64)).to(dev),
         dev,
     )
+    # one copy of the pads to the host, then a step only for a bit that
+    # some row's pad has (rows of full length have none)
+    bits = 0
+    for p in pad.tolist():
+        bits |= p
     for j in range(max_bits):
-        hit = ((pad >> j) & 1).bool()
-        crc = torch.where(hit, _apply_bank(unwind[j], crc), crc)
+        if (bits >> j) & 1:
+            hit = ((pad >> j) & 1).bool()
+            crc = torch.where(hit, _apply_bank(unwind[j], crc), crc)
     return crc
 
 

@@ -113,11 +113,22 @@ def shift_matrix(nbytes: int) -> np.ndarray:
     return mat_pow(Z, nbytes)
 
 
-def unshift_pow2_bank(max_bits: int) -> np.ndarray:
-    """[max_bits, 32] bank: row j = (Z^-1)**(2**j), for dynamic unwinds."""
+def _pow2_bank(m: np.ndarray, max_bits: int) -> np.ndarray:
+    """[max_bits, 32] bank: row j = m**(2**j)."""
     bank = np.zeros((max_bits, 32), dtype=np.uint32)
-    cur = Z_INV
+    cur = m
     for j in range(max_bits):
         bank[j] = cur
         cur = mat_mul(cur, cur)
     return bank
+
+
+def shift_pow2_bank(max_bits: int) -> np.ndarray:
+    """[max_bits, 32] bank: row k = Z**(2**k), the shift past 2**k zero
+    bytes (K4 folds its threads' states and its zero steps with it)."""
+    return _pow2_bank(Z, max_bits)
+
+
+def unshift_pow2_bank(max_bits: int) -> np.ndarray:
+    """[max_bits, 32] bank: row j = (Z^-1)**(2**j), for dynamic unwinds."""
+    return _pow2_bank(Z_INV, max_bits)

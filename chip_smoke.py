@@ -32,15 +32,16 @@ JSON line:
              decode) against their plain versions on CPU copies of the
              same rows of <= 4 KiB (for K5/K6 also every hazard of their
              windows, ``lzp_hazards``, and K6 cut at max_out), byte for
-             byte, K4's CRCs against the host C++, and each kernel's
-             step time on one row;
+             byte (K4 at three lane counts), K4's CRCs against the host
+             C++, and each kernel's time a byte on one row;
 8. main_prepass - the device prepass chain: 8 blocks x 16 MiB (text,
              log lines where LZP fires, a sparse block where RLE fires)
              through ``compress_file`` / ``decompress_file`` with
              ``device_prepass=True``; the stream must equal the default
              path's, with LZP and RLE each kept on some block;
 9. prepass_shapes - K4, K5 and K6 on that phase's own [8, 16 Mi] rows,
-             timed, each checked in full against the host C++; K5/K6's
+             timed, each checked in full against the host C++ (and K4
+             with the lane combine, as encode/crc runs it); K5/K6's
              windows and events of each row, their bounds by bytes and
              by the L2 round trip;
 10. parity_resume - K3a, K3b and K3c (the resumable CM kernels) against
@@ -91,18 +92,20 @@ PEAK_OPS_PER_S = 67e12
 # range split: 64-bit product and shift; branch; renorm test; four
 # counter updates; context update), counted from csrc/cm_kernels.cu.
 OPS_PER_BIT = 40
-# Operations of one CRC lane step (load, xor, mask, table load, shift,
-# xor), counted from csrc/crc32_kernels.cu, and of the LZP function's
+# Operations of K4 a byte: a 16-byte unit takes one load, 16 table loads
+# and 32 index operations (shift, mask), 18 xors, and its round shift 4
+# table loads, 7 index operations and 4 xors: 82 a unit, 5 a byte
+# (counted from csrc/crc32_kernels.cu); and of the LZP function's
 # step a byte (hash: 3 shifts/xors and a mask; table load and store;
 # tests of the slot and the token; byte load and store; context shift
 # and or; loop tests): the serial state machine's work, which K5/K6's
 # windows repeat speculatively (a window's lanes all gather and test).
-OPS_PER_CRC_BYTE = 6
+OPS_PER_CRC_BYTE = 5
 OPS_PER_LZP_STEP = 18
 # Where each kernel stands: "ported" (its first CUDA form) or
 # "redesigned" (rebuilt for the card after it was ported).
 STATUS = {"K1": "redesigned", "K2": "redesigned", "K3a": "redesigned", "K3b": "redesigned",
-          "K3c": "redesigned", "K4": "ported", "K5": "redesigned", "K6": "redesigned"}
+          "K3c": "redesigned", "K4": "redesigned", "K5": "redesigned", "K6": "redesigned"}
 # The kernels of each main path; a main phase fails if one of them did
 # not launch.
 DEFAULT_PATH = ("cm_encode", "cm_decode")
@@ -172,12 +175,17 @@ def _pad(rows, width):
     return arr, lens
 
 
-def _cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` on the card between CUDA events."""
+def _cuda_ms(fn, reps: int, queue: bool = False) -> float:
+    """Mean milliseconds of ``fn`` on the card between CUDA events.  With
+    ``queue``, the calls are queued behind a sleeping kernel, so that the
+    host's time to launch them leaves no gaps on the card (for a kernel
+    shorter than its wrapper's Python)."""
     import torch
 
     fn()  # warm up
     torch.cuda.synchronize()
+    if queue:
+        torch.cuda._sleep(50_000_000)  # ~25 ms
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -248,7 +256,8 @@ def phase_build(card: str) -> dict:
     # registers, static shared memory and spills of every kernel (-Xptxas -v)
     res = build.kernel_resources()
     for k in ("cm_encode_kernel", "cm_decode_kernel", "cm_encode_resume_kernel",
-              "cm_decode_resume_kernel", "lzp_encode_kernel", "lzp_decode_kernel"):
+              "cm_decode_resume_kernel", "crc_lane_kernel", "lzp_encode_kernel",
+              "lzp_decode_kernel"):
         _require(k in res, f"no -Xptxas -v lines for {k}")
     out = {"phase": "build", "card": card, "kernel_dir": build.KERNEL_DIR,
            "kernels_s": round(t_kernels, 3), "host_s": round(t_host, 3), "resources": res}
@@ -741,8 +750,8 @@ def lzp_streams(encoded: list[bytes]) -> list[bytes]:
 def phase_parity_prepass(card: str) -> dict:
     """K4, K5 and K6 against their plain versions on the same rows, byte
     for byte (K5/K6 on every window hazard too); K4's CRCs against the
-    host C++; the time a step of each on one row (K4: one thread; K5/K6:
-    one warp over windows of 32 literals)."""
+    host C++; the time a byte of each on one row (K4: one CTA on a 4 MiB
+    lane; K5/K6: one warp over windows of 32 literals)."""
     import torch
     from bzip3_tpu_torch.ops import host
     from bzip3_tpu_torch.ops.device import crc32, crc32_cuda, lzp, lzp_cuda
@@ -754,11 +763,14 @@ def phase_parity_prepass(card: str) -> dict:
     d_gpu, l_gpu = d_cpu.cuda(), l_cpu.cuda()
     before = launch_counts()
 
-    # K4 on the first 12 rows: lane states at the device lane count (one
-    # byte a lane here) and at 128 lanes (32-byte segments), then whole CRCs.
+    # K4 on the first 12 rows: lane states at the lane count crc32_batch
+    # gives the kernel (one lane a row here), at 128 lanes (32-byte lanes)
+    # and at 7 (lanes that start and end inside 16-byte units), then
+    # whole CRCs.
     c_cpu, cl_cpu, c_gpu, cl_gpu = d_cpu[:12], l_cpu[:12], d_gpu[:12], l_gpu[:12]
+    k4_lanes = crc32_cuda.lanes_for(c_gpu)
     k4_err, k4_plain_ms = 0, 0.0
-    for lanes in (crc32.LANES, 128):
+    for lanes in (k4_lanes, 128, 7):
         t0 = time.perf_counter()
         want = crc32.crc_lane_scan(c_cpu, cl_cpu, lanes)
         k4_plain_ms += (time.perf_counter() - t0) * 1e3
@@ -768,7 +780,7 @@ def phase_parity_prepass(card: str) -> dict:
     _require(k4_err == 0, "K4 differs from the plain lane scan")
     crcs = crc32_cuda.crc32_batch(c_gpu, cl_gpu).cpu().tolist()
     _require(crcs == [host.crc32(r) for r in rows[:12]], "K4 CRCs differ from the host C++")
-    k4_ms = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(c_gpu, cl_gpu, crc32.LANES), 5)
+    k4_ms = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(c_gpu, cl_gpu, k4_lanes), 5, queue=True)
 
     # K5 against the plain encoder: the smoke's LZP rows and every window
     # hazard (lzp_hazards).
@@ -811,13 +823,18 @@ def phase_parity_prepass(card: str) -> dict:
     k6_ms = _cuda_ms(lambda: lzp_cuda.lzp_decode(e_gpu, el_gpu, n + 64), 3)
     parity_launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
 
-    # Step latency on one row: K4 on a 64 KiB lane (one thread); K5 and
-    # K6 (one warp) on 1 MiB of random bytes without 0xF2, all literals
-    # (K5 stops at out_cap after MiB - 8 of them, K6 decodes all MiB).
+    # The time a byte of one CTA alone on the card: K4 on one 4 MiB lane
+    # (one CTA); K5 and K6 (one warp) on 1 MiB of random bytes without
+    # 0xF2, all literals (K5 stops at out_cap after MiB - 8 of them, K6
+    # decodes all MiB).
     rng = np.random.default_rng(13)
-    lane = torch.from_numpy(rng.integers(0, 256, (1, 64 << 10), dtype=np.uint8)).cuda()
-    lane_len = torch.tensor([64 << 10], dtype=torch.int32).cuda()
-    k4_step_ns = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(lane, lane_len, 1), 3) * 1e6 / (64 << 10)
+    lane = torch.from_numpy(rng.integers(0, 256, (1, 4 * MiB), dtype=np.uint8)).cuda()
+    lane_len = torch.tensor([4 * MiB], dtype=torch.int32).cuda()
+    k4_state = int(crc32_cuda.crc_lane_scan(lane, lane_len, 1)[0, 0])
+    _require(crc32.crc32_from_lanes(torch.tensor([[k4_state]]), 4 * MiB, lane_len.cpu()).item()
+             == host.crc32(lane.cpu().numpy().tobytes()), "K4 on one 4 MiB lane")
+    k4_step_ns = (_cuda_ms(lambda: crc32_cuda.crc_lane_scan(lane, lane_len, 1), 5, queue=True)
+                  * 1e6 / (4 * MiB))
     lit = rng.integers(0, 255, (1, MiB), dtype=np.uint8)
     lit[lit == 0xF2] = 0xF1
     big = torch.from_numpy(lit).cuda()
@@ -830,7 +847,8 @@ def phase_parity_prepass(card: str) -> dict:
     out = {
         "phase": "parity_prepass", "card": card, "rows": len(rows), "width": n, "tolerance": 0,
         "k4": {"max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "shape": [12, n],
-               "plain_device": "cpu", "crcs_equal_host": True, "step_ns": k4_step_ns},
+               "lanes": [k4_lanes, 128, 7], "plain_device": "cpu", "crcs_equal_host": True,
+               "step_ns": k4_step_ns},
         "k5": {"max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms, "shape": [len(rows), n],
                "plain_device": "cpu", "out_lens": p_lens.tolist(), "step_ns": k5_step_ns},
         "k6": {"max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
@@ -915,7 +933,8 @@ def phase_main_prepass(card: str, data: bytes, bs: int, blocks: int) -> dict:
     launches = out["launches"]
     _require({k for k, v in launches.items() if v} == set(PREPASS_PATH),
              f"launches off the chain's kernels: {launches}")
-    out.update({"models": models, "identical_to_default_path": True})
+    out.update({"models": models, "identical_to_default_path": True,
+                "crc_stages_s": {k: out["stages_s"][k] for k in ("encode/crc", "decode/crc_verify")}})
     emit(out)
     return out
 
@@ -935,10 +954,20 @@ def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int, lat: dict
     raw = [data[i * bs : (i + 1) * bs] for i in range(blocks)]
     arr, lens = _pad(raw, bs)
     orig, orig_lens = torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
-    states = crc32_cuda.crc_lane_scan(orig, orig_lens, crc32.LANES)
+    k4_lanes = crc32_cuda.lanes_for(orig)
+    states = crc32_cuda.crc_lane_scan(orig, orig_lens, k4_lanes)
     crcs = crc32.crc32_from_lanes(states, bs, orig_lens).cpu().tolist()
     _require(crcs == [host.crc32(r) for r in raw], "K4 CRCs differ from the host C++")
-    k4_ms = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(orig, orig_lens, crc32.LANES), 5)
+    k4_ms = _cuda_ms(lambda: crc32_cuda.crc_lane_scan(orig, orig_lens, k4_lanes), 20, queue=True)
+    # the encode/crc stage's work: K4, the lane combine and the pad
+    # unwind (tensor code), host clock to a synchronise
+    batch_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crc32_cuda.crc32_batch(orig, orig_lens)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
 
     r_out, r_lens = rle.rle_encode_batch(orig, orig_lens, bs + 64)
     use_rle = r_lens < orig_lens
@@ -973,7 +1002,8 @@ def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int, lat: dict
     out = {
         "phase": "prepass_shapes", "card": card, "shape": [blocks, bs],
         "row_lens": lens.tolist(), "post_rle_lens": cl, "lzp_lens": ll, "crcs_equal_host": True,
-        "k4_ms": k4_ms, "lanes": crc32.LANES, "seg": -(-bs // crc32.LANES),
+        "k4_ms": k4_ms, "lanes": int(states.shape[1]), "seg": crc32.lane_layout(bs, k4_lanes)[1],
+        "k4_smem_bytes": crc32_cuda.smem_bytes(), "crc32_batch_ms": batch_ms,
         "k5_ms": k5_ms, "k6_ms": k6_ms, "k5_equal_host": True, "k6_round_trip": True,
         "k5_ns_per_byte_step": k5_ms * 1e6 / k5_steps, "k6_ns_per_byte_step": k6_ms * 1e6 / k6_steps,
         "k5_steps": k5_steps, "k6_steps": k6_steps,
@@ -1352,7 +1382,8 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
     mid = pshapes["post_rle_lens"]
     dec_out = [mid[i] for i in range(k_rows) if pshapes["lzp_lens"][i] >= 0]
     for kid, key, fn, src, src_line, nbytes, ops in (
-        # K4: every byte read once, [K, L] int32 lane states written
+        # K4: every byte read once, [K, L] int32 lane states written (L
+        # from crc32.kernel_lanes: one CTA a lane)
         ("K4", "crc_lanes", "crc_lane_kernel", "crc32_kernels.cu",
          "bzip3_tpu/ops/device/crc32_pallas.py:45",
          sum(raw) + 4 * k_rows * pshapes["lanes"] + 4 * k_rows, OPS_PER_CRC_BYTE * sum(raw)),
@@ -1382,8 +1413,9 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
             "ns_per_step_one_row": pparity[k]["step_ns"],
             "registers": resources.get(fn, {}).get("registers"),
         }
-        if kid == "K4":  # its segment at one lane's measured step latency
-            row["serial_bound_ms"] = pshapes["seg"] * pparity["k4"]["step_ns"] * 1e-6
+        if kid == "K4":  # a lane's bytes at one CTA's own rate, alone on the card
+            row.update({"serial_bound_ms": pshapes["seg"] * pparity["k4"]["step_ns"] * 1e-6,
+                        "lanes": pshapes["lanes"], "smem_bytes": pshapes["k4_smem_bytes"]})
         else:  # the busiest row's counted windows at the L2 round trip
             st = pshapes[f"{k}_stats"]["per_row"]
             busiest = max(range(k_rows), key=lambda i: st[i][0])

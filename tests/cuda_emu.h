@@ -1,6 +1,7 @@
 // A host emulation of the CUDA built-ins that bzip3_tpu_torch/csrc/
-// cm_kernels.cu and lzp_kernels.cu use, so that tests/test_torch_cm_emulated.py
-// and tests/test_torch_lzp_emulated.py can run the kernels' own source on
+// cm_kernels.cu, lzp_kernels.cu and crc32_kernels.cu use, so that
+// tests/test_torch_cm_emulated.py, test_torch_lzp_emulated.py and
+// test_torch_crc32_emulated.py can run the kernels' own source on
 // the CPU: one std::thread per CUDA thread, up to kEmuBlocks blocks at a
 // time, each with its own shared memory and barriers; __syncthreads,
 // __syncwarp and the named barriers (bar.sync / bar.arrive with a thread
@@ -9,7 +10,8 @@
 // collectives (__shfl_sync, __shfl_up_sync, __ballot_sync,
 // __match_any_sync) take the full mask only: each lane posts its value
 // in its warp's slots, the warp meets, each lane reads, the warp meets
-// again (a yielding barrier of its own).
+// again (a yielding barrier of its own).  __ldg can be held to the
+// ranges a kernel may read (emu_ldg_ranges).
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -37,7 +39,7 @@ struct uint4 { uint32_t x, y, z, w; };
 struct uint2 { uint32_t x, y; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
-struct dim3i { uint32_t x; };
+struct dim3i { uint32_t x, y; };
 extern thread_local dim3i threadIdx, blockIdx;
 extern dim3i blockDim;
 typedef int cudaError_t;
@@ -62,7 +64,25 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t, uint32_t s) {
     if (s != 0x0123) abort();  // only the byte swap is emulated
     return __builtin_bswap32(x);
 }
-template <class T> T __ldg(const T *p) { return *p; }
+// Reads through __ldg may be held to ranges: while emu_ldg_ranges holds
+// any, a read that is not wholly inside one of them is counted in
+// emu_ldg_faults and gives zero instead of touching memory.  Empty (the
+// CM and LZP tests), every read goes through.
+struct EmuRange { const char *lo, *hi; };
+inline std::vector<EmuRange> emu_ldg_ranges;
+inline std::atomic<long> emu_ldg_faults{0};
+template <class T> T __ldg(const T *p) {
+    if (!emu_ldg_ranges.empty()) {
+        const char *a = reinterpret_cast<const char *>(p), *b = a + sizeof(T);
+        bool inside = false;
+        for (const EmuRange &r : emu_ldg_ranges) inside |= a >= r.lo && b <= r.hi;
+        if (!inside) {
+            emu_ldg_faults.fetch_add(1);
+            return T{};
+        }
+    }
+    return *p;
+}
 using std::max;
 using std::min;
 
@@ -179,8 +199,10 @@ struct EmuBlock {
 };
 constexpr int kEmuBlocks = 4;
 
-// Runs body as `rows` blocks of blockDim.x threads, kEmuBlocks at a time.
-inline void emu_launch(int rows, const std::function<void()> &body) {
+// Runs body as a grid of gx x gy blocks of blockDim.x threads, kEmuBlocks
+// at a time (blockIdx.x varies fastest).
+inline void emu_launch_grid(int gx, int gy, const std::function<void()> &body) {
+    const int rows = gx * gy;
     for (int r0 = 0; r0 < rows; r0 += kEmuBlocks) {
         std::vector<std::unique_ptr<EmuBlock>> blocks;
         std::vector<std::thread> ts;
@@ -188,9 +210,10 @@ inline void emu_launch(int rows, const std::function<void()> &body) {
             blocks.emplace_back(new EmuBlock());
             EmuBlock *b = blocks.back().get();
             for (uint32_t t = 0; t < blockDim.x; ++t)
-                ts.emplace_back([&body, b, r, t] {
+                ts.emplace_back([&body, b, r, t, gx] {
                     threadIdx.x = t;
-                    blockIdx.x = (uint32_t)r;
+                    blockIdx.x = (uint32_t)(r % gx);
+                    blockIdx.y = (uint32_t)(r / gx);
                     smem = b->smem;
                     emu_bars = b->bars;
                     emu_warps = b->warps;
@@ -201,4 +224,9 @@ inline void emu_launch(int rows, const std::function<void()> &body) {
         }
         for (auto &t : ts) t.join();
     }
+}
+
+// Runs body as `rows` blocks (blockIdx.x = 0 .. rows - 1).
+inline void emu_launch(int rows, const std::function<void()> &body) {
+    emu_launch_grid(rows, 1, body);
 }

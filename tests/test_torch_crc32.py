@@ -102,3 +102,29 @@ def test_bytes_past_length_are_ignored(batch):
 def test_wrapper_rejects_bad_inputs(rows, lens, err):
     with pytest.raises(err):
         crc32_cuda.crc_lane_scan(rows, lens, 128)
+
+
+@pytest.mark.parametrize(
+    "n, k, sms, lanes",
+    [
+        (16 << 20, 8, 132, 16),  # the chain's wave: 128 CTAs, 1 MiB lanes
+        (16 << 20, 1, 132, 132),  # one row: a CTA on every SM
+        (16 << 20, 200, 132, 1),  # more rows than SMs: a lane a row
+        (1 << 20, 1, 132, 16),  # no lane under MIN_SEG
+        (4096, 12, 132, 1),
+        (20, 1, 132, 1),
+        (0, 1, 132, 1),
+    ],
+)
+def test_kernel_lanes_rule(n, k, sms, lanes):
+    """K4's lane count: about one CTA an SM over all rows, no lane under
+    MIN_SEG bytes, at least one; and any lane count gives the same CRC."""
+    got = crc32.kernel_lanes(n, k, sms)
+    assert got == lanes
+    assert crc32.lane_layout(n, got)[0] == got
+    if 0 < n <= 1 << 16:  # the plain scan is a loop of seg steps
+        row = torch.from_numpy(RNG.integers(0, 256, (1, n), dtype=np.uint8))
+        ln = torch.tensor([n - 1], dtype=torch.int32)
+        want = ref_crc32(row[0, : n - 1].numpy().tobytes())
+        for L in (got, crc32.LANES):
+            assert crc32.crc32_batch(row, ln, L).tolist() == [want]
