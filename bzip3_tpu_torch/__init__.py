@@ -13,8 +13,12 @@ Entry points run on ``device="cuda"`` unless the caller passes
 Public API:
 
 - :func:`compress` / :func:`decompress` — one-shot frame API
-- :func:`compress_file` / :func:`decompress_file` — the CLI's stream format
-- :func:`bound` — worst-case compressed size of one block
+- :func:`compress_file` / :func:`decompress_file` / :func:`test_file` /
+  :func:`recover_file` — the CLI's stream format
+- :class:`Bz3Codec` — reusable block encoder/decoder (cf. bz3_new,
+  bz3_encode_block, bz3_decode_block)
+- :func:`bound` — worst-case compressed size of one block;
+  :func:`min_memory_needed`, :func:`orig_size_sufficient_for_decode`
 """
 
 from .version import __version__
@@ -31,9 +35,21 @@ from .errors import (
     Bz3Error,
     strerror,
 )
-from .container.bound import bound, BLOCK_SIZE_MIN, BLOCK_SIZE_MAX
+from .container.bound import (
+    bound,
+    min_memory_needed,
+    orig_size_sufficient_for_decode,
+    BLOCK_SIZE_MIN,
+    BLOCK_SIZE_MAX,
+)
+from .models.block_codec import Bz3Codec
 from .container.frame import compress, decompress
-from .container.stream import compress_file, decompress_file
+from .container.stream import (
+    compress_file,
+    decompress_file,
+    test_file,
+    recover_file,
+)
 
 __all__ = [
     "__version__",
@@ -41,7 +57,12 @@ __all__ = [
     "decompress",
     "compress_file",
     "decompress_file",
+    "test_file",
+    "recover_file",
+    "Bz3Codec",
     "bound",
+    "min_memory_needed",
+    "orig_size_sufficient_for_decode",
     "BLOCK_SIZE_MIN",
     "BLOCK_SIZE_MAX",
     "Bz3Error",

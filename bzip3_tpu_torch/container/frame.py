@@ -15,6 +15,7 @@ from .bound import KiB, bound, validate_block_size
 from ..engines import DeviceEngine
 from ..errors import (
     Bz3Error,
+    BZ3_ERR_DATA_TOO_BIG,
     BZ3_ERR_MALFORMED_HEADER,
     BZ3_ERR_TRUNCATED_DATA,
 )
@@ -69,8 +70,13 @@ def decompress(
     engine=None,
     batch_size: int = 16,
     device="cuda",
+    max_output: int | None = None,
 ) -> bytes:
-    """Decompress a BZ3v1 frame produced by :func:`compress`."""
+    """Decompress a BZ3v1 frame produced by :func:`compress`.
+
+    With ``max_output``, a frame whose blocks' original sizes add up past
+    it raises BZ3_ERR_DATA_TOO_BIG while its headers are read, before any
+    block is decoded."""
     eng = engine if engine is not None else DeviceEngine(device)
     if len(data) < 13:
         raise Bz3Error(BZ3_ERR_MALFORMED_HEADER)
@@ -84,6 +90,7 @@ def decompress(
     out = bytearray()
     pos = 13
     pending: list[tuple[bytes, int]] = []
+    total_osize = 0
     for _ in range(n_blocks):
         if len(data) - pos < 8:
             raise Bz3Error(BZ3_ERR_MALFORMED_HEADER)
@@ -98,6 +105,9 @@ def decompress(
             raise Bz3Error(BZ3_ERR_MALFORMED_HEADER)
         if len(data) - pos < csize + 8:
             raise Bz3Error(BZ3_ERR_TRUNCATED_DATA)
+        total_osize += osize
+        if max_output is not None and total_osize > max_output:
+            raise Bz3Error(BZ3_ERR_DATA_TOO_BIG)
         pos += 8
         pending.append((data[pos : pos + csize], osize))
         pos += csize

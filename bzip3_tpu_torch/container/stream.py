@@ -7,16 +7,21 @@ Layout (reference: process(), src/main.c:157-482):
 
 There is no block count: the stream ends at EOF.  The decoder
 validates both chunk sizes against bound(block_size) before decoding.
+``test`` is decode without output; ``recover`` decodes what it can,
+writes best-effort bytes for the blocks that fail, and goes on
+(src/main.c:279-299).
 """
 
 from __future__ import annotations
 
 import struct
+import sys
 from typing import BinaryIO, Iterator
 
 from .bound import MiB, bound, validate_block_size
 from ..engines import DeviceEngine
 from ..errors import Bz3Error, BZ3_ERR_MALFORMED_HEADER, BZ3_ERR_TRUNCATED_DATA
+from ..models.block_codec import decode_block_recover
 
 MAGIC = b"BZ3v1"
 _U32 = struct.Struct("<I")
@@ -28,7 +33,7 @@ def write_file_header(out: BinaryIO, block_size: int) -> int:
     return 9
 
 
-def read_file_header(inp: BinaryIO) -> int:
+def read_file_header(inp: BinaryIO, recover: bool = False) -> int:
     sig = inp.read(5)
     if sig != MAGIC:
         raise Bz3Error(BZ3_ERR_MALFORMED_HEADER, "invalid signature")
@@ -37,6 +42,10 @@ def read_file_header(inp: BinaryIO) -> int:
         raise Bz3Error(BZ3_ERR_TRUNCATED_DATA, "short header")
     block_size = _U32.unpack(raw)[0]
     if not validate_block_size(block_size):
+        if recover:
+            # recover mode goes on at the largest block size
+            # (src/main.c:199-204)
+            return 511 * MiB
         raise Bz3Error(BZ3_ERR_MALFORMED_HEADER, "invalid block size in header")
     return block_size
 
@@ -118,27 +127,53 @@ def compress_file(
 
 def decompress_file(
     inp: BinaryIO,
-    out: BinaryIO,
+    out: BinaryIO | None,
     engine=None,
     batch_size: int = 1,
     device="cuda",
+    recover: bool = False,
+    test_only: bool = False,
 ) -> tuple[int, int]:
-    """Stream-decompress; returns (bytes_read, bytes_written).
+    """Stream-decompress, test or recover; returns (read, written).
 
-    The engine receives the block size parsed from the file header."""
+    The engine receives the block size parsed from the file header.  In
+    recover mode a batch that raises is decoded again block by block
+    through the engine, and a block that still fails goes to
+    ``decode_block_recover`` over the engine's stage namespace
+    (``engine.stages``), which writes what its stage chain produced.
+    ``test_only`` writes nothing and counts the bytes it would write."""
     eng = engine if engine is not None else DeviceEngine(device)
-    block_size = read_file_header(inp)
+    block_size = read_file_header(inp, recover=recover)
     bytes_read = 9
     bytes_written = 0
     pending: list[tuple[bytes, int]] = []
+
+    def recover_one(payload: bytes, osize: int) -> bytes:
+        try:
+            return eng.decode_blocks([(payload, osize)], block_size)[0]
+        except Bz3Error:
+            pass
+        data, ok = decode_block_recover(payload, osize, block_size, eng.stages)
+        if not ok:
+            print("bzip3: Writing invalid block.", file=sys.stderr)
+        return data
 
     def flush():
         nonlocal bytes_written
         if not pending:
             return
-        for (_, osize), data in zip(pending, eng.decode_blocks(list(pending), block_size)):
-            out.write(data[:osize])
-            bytes_written += min(len(data), osize)
+        try:
+            results = eng.decode_blocks(list(pending), block_size)
+        except Bz3Error:
+            if not recover:
+                raise
+            results = [recover_one(p, o) for p, o in pending]
+        for (_, osize), data in zip(pending, results):
+            if out is not None and not test_only:
+                out.write(data[:osize])
+                bytes_written += min(len(data), osize)
+            else:
+                bytes_written += osize
         pending.clear()
 
     for csize, osize, payload in iter_chunks(inp, block_size):
@@ -148,3 +183,15 @@ def decompress_file(
             flush()
     flush()
     return bytes_read, bytes_written
+
+
+def test_file(inp: BinaryIO, engine=None, batch_size: int = 1,
+              device="cuda") -> tuple[int, int]:
+    """Decode without output; raises on the first bad block."""
+    return decompress_file(inp, None, engine, batch_size, device, test_only=True)
+
+
+def recover_file(inp: BinaryIO, out: BinaryIO, engine=None, batch_size: int = 1,
+                 device="cuda") -> tuple[int, int]:
+    """Decode what can be decoded, best-effort bytes for the rest."""
+    return decompress_file(inp, out, engine, batch_size, device, recover=True)

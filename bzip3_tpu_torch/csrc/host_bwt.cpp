@@ -519,7 +519,10 @@ extern "C" s32 bz3h_bwt_inverse(const u8 *in, u8 *out, s32 n, s32 index, s32 *sc
     if (n + 1 < (1 << 24) && scratch_words >= (int64_t)(n + 2)) {
         u32 *node = (u32 *)scratch;  // n+1 u32 entries
         for (s32 j = 0; j < index; j++) node[j] = ((u32)start[in[j] + 1]++ << 8) | in[j];
-        node[index] = (u32)start[0]++ << 8;  // sentinel (symbol unused)
+        // The sentinel's symbol is 0xFF, as the oracle's walk emits it
+        // (its code 0, minus 1): a sound index never reaches it inside
+        // the row, a damaged one (recover mode) can.
+        node[index] = ((u32)start[0]++ << 8) | 0xFF;
         for (s32 j = index + 1; j <= n; j++)
             node[j] = ((u32)start[in[j - 1] + 1]++ << 8) | in[j - 1];
         // Pair-merge: pre-compose two LF steps per node so the serial
@@ -601,7 +604,7 @@ extern "C" s32 bz3h_bwt_inverse(const u8 *in, u8 *out, s32 n, s32 index, s32 *sc
     } else if (n + 1 < (1 << 24)) {
         u32 *node = (u32 *)scratch;
         for (s32 j = 0; j < index; j++) node[j] = ((u32)start[in[j] + 1]++ << 8) | in[j];
-        node[index] = (u32)start[0]++ << 8;
+        node[index] = ((u32)start[0]++ << 8) | 0xFF;
         for (s32 j = index + 1; j <= n; j++)
             node[j] = ((u32)start[in[j - 1] + 1]++ << 8) | in[j - 1];
         u32 i = node[0];
@@ -612,7 +615,7 @@ extern "C" s32 bz3h_bwt_inverse(const u8 *in, u8 *out, s32 n, s32 index, s32 *sc
     } else {
         u64 *node = (u64 *)scratch;  // n+1 u64 entries (scratch is 2x)
         for (s32 j = 0; j < index; j++) node[j] = ((u64)start[in[j] + 1]++ << 8) | in[j];
-        node[index] = (u64)start[0]++ << 8;
+        node[index] = ((u64)start[0]++ << 8) | 0xFF;
         for (s32 j = index + 1; j <= n; j++)
             node[j] = ((u64)start[in[j - 1] + 1]++ << 8) | in[j - 1];
         // The headline `-b 16` block is EXACTLY 2^24 bytes — one past

@@ -1,26 +1,81 @@
-"""Block engine of the port (counterpart of the JAX package's
-``engines.py:56-80``).
+"""Engine registry of the port: pluggable block codec backends
+(counterpart of the JAX package's ``engines.py``).
 
-The engine interface shared by the frame, stream and CLI layers:
+Every engine serves the batch interface of the frame, stream and CLI
+layers:
 
     encode_blocks(blocks: list[bytes], block_size=None) -> list[bytes]
     decode_blocks(pairs: list[(block_bytes, orig_size)], block_size) -> list[bytes]
 
-``DeviceEngine`` runs the block pipeline on ``device``: ``"cuda"`` by
-default, ``"cpu"`` only when the caller asks for it.  ``device_prepass``,
-``host_crc`` and ``device_crc_verify`` pass through to the pipelines
-(``pipeline.py``); None reads the JAX package's variables.
+and names in ``stages`` the single-block stage namespace that recover
+mode decodes a damaged block through.
+
+- ``oracle``: the block codec (``models/block_codec.py``) over the plain
+  versions, ``block_stages("cpu")``; slow, the port's reference.
+- ``native``: the host C++ codec with a pthread block pool
+  (``ops/native``).
+- ``device``: the batched block pipeline (``pipeline.py``) on ``device``:
+  ``"cuda"`` by default, ``"cpu"`` only when the caller asks for it.
+- ``hybrid``: the native pool and the device pipeline splitting one
+  batch and working at once.
+- ``auto``: native if its library builds, else oracle.
+
+``sharded`` (the pipeline over several cards) is not in the port yet.
+All engines produce byte-identical BZ3v1 streams.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import torch
 
+from .models.block_codec import decode_block, encode_block
+from .ops import native
+from .ops.build import BuildError
+from .ops.device.stages import block_stages
 from .pipeline import DevicePipeline, resolve_device
 from .utils.profiling import StageTimer
 
+NAMES = ("device", "oracle", "native", "hybrid", "auto")
+
+
+class OracleEngine:
+    name = "oracle"
+
+    def __init__(self):
+        self.stages = block_stages("cpu")
+
+    def encode_blocks(self, blocks, block_size=None):
+        return [encode_block(b, self.stages) for b in blocks]
+
+    def decode_blocks(self, pairs, block_size):
+        return [decode_block(b, osize, block_size, self.stages) for b, osize in pairs]
+
+
+class NativeEngine:
+    """The host C++ codec on ``n_threads`` workers (0: one a core)."""
+
+    name = "native"
+    stages = native.STAGES
+
+    def __init__(self, n_threads: int = 0):
+        native.load()
+        self.n_threads = n_threads
+
+    def encode_blocks(self, blocks, block_size=None):
+        return native.encode_blocks(blocks, self.n_threads)
+
+    def decode_blocks(self, pairs, block_size):
+        return native.decode_blocks(pairs, block_size, self.n_threads)
+
 
 class DeviceEngine:
+    """The block pipeline on ``device``.  ``device_prepass``, ``host_crc``
+    and ``device_crc_verify`` pass through to the pipelines
+    (``pipeline.py``); None reads the JAX package's variables."""
+
     name = "device"
 
     def __init__(
@@ -40,6 +95,7 @@ class DeviceEngine:
             "device_crc_verify": device_crc_verify,
         }
         self._pipes: dict[int, DevicePipeline] = {}
+        self.stages = block_stages(self.device)
 
     def _pipe(self, block_size: int) -> DevicePipeline:
         if block_size not in self._pipes:
@@ -60,3 +116,69 @@ class DeviceEngine:
 
     def decode_blocks(self, pairs, block_size):
         return self._pipe(block_size).decode_blocks(pairs)
+
+
+class HybridEngine:
+    """The native pool and the device pipeline on one batch at once.
+
+    The first ``device_share`` of a batch's blocks go to the device
+    pipeline while the native pool works the rest on a second thread (its
+    ctypes call releases the GIL); streams are byte-identical across
+    engines, so the split does not show in the output.  ``device_share``
+    defaults to ``BZ3_TPU_HYBRID_SHARE`` (0.07), and a batch under
+    ``BZ3_TPU_HYBRID_MIN_MIB`` (1024) MiB goes to the native pool alone:
+    the JAX package's values and gate (its engines.py:124-138).
+    """
+
+    name = "hybrid"
+
+    def __init__(self, n_threads: int = 0, device_share: float | None = None,
+                 device="cuda"):
+        self._native = NativeEngine(n_threads)
+        self._device = DeviceEngine(device)
+        self.stages = self._native.stages
+        if device_share is None:
+            device_share = float(os.environ.get("BZ3_TPU_HYBRID_SHARE", "0.07"))
+        self.device_share = min(1.0, max(0.0, device_share))
+
+    def _run(self, items, block_size, dev_fn, nat_fn):
+        min_b = int(float(os.environ.get("BZ3_TPU_HYBRID_MIN_MIB", "1024")) * (1 << 20))
+        total = sum(len(it[0]) if isinstance(it, tuple) else len(it) for it in items)
+        d = int(round(len(items) * self.device_share))
+        if d == 0 or len(items) < 2 or total < min_b:
+            return nat_fn(items, block_size)
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(nat_fn, items[d:], block_size)
+            dev_out = dev_fn(items[:d], block_size)
+            return dev_out + fut.result()
+
+    def encode_blocks(self, blocks, block_size=None):
+        bs = block_size or max((len(b) for b in blocks), default=64)
+        return self._run(blocks, bs, self._device.encode_blocks, self._native.encode_blocks)
+
+    def decode_blocks(self, pairs, block_size):
+        return self._run(pairs, block_size, self._device.decode_blocks,
+                         self._native.decode_blocks)
+
+
+def get_engine(name: str = "auto", n_threads: int = 0, device="cuda"):
+    """The engine called ``name`` (``NAMES``); ``device`` places the
+    device and hybrid engines."""
+    if name == "auto":
+        try:
+            return NativeEngine(n_threads)
+        except BuildError:  # no host compiler: the plain versions
+            return OracleEngine()
+    if name == "oracle":
+        return OracleEngine()
+    if name == "native":
+        return NativeEngine(n_threads)
+    if name == "device":
+        return DeviceEngine(device)
+    if name == "hybrid":
+        return HybridEngine(n_threads, device=device)
+    if name == "sharded":
+        raise ValueError(
+            "engine 'sharded' needs the multi-GPU slice of the port, not ported yet"
+        )
+    raise ValueError(f"unknown engine {name!r}")

@@ -3,9 +3,10 @@
 Two shared libraries, each with a plain C interface loaded by ctypes:
 
 - ``libbz3_host.so``: the host pre/post passes (CRC32-C, RLE, LZP) from
-  ``csrc/host_stages.cpp`` and the host BWT (SA-IS forward, quad-merge
-  inverse) from ``csrc/host_bwt.cpp``, compiled with ``g++``.  Host code
-  on every machine.
+  ``csrc/host_stages.cpp``, the host BWT (SA-IS forward, quad-merge
+  inverse) from ``csrc/host_bwt.cpp`` and the host CM coder, block codec
+  and pthread block pool from ``csrc/host_codec.cpp``, compiled with
+  ``g++ -pthread``.  Host code on every machine.
 - ``libbz3_kernels.so``: the hand-written CUDA kernels from
   ``csrc/*.cu``, compiled with ``nvcc`` for ``sm_90a`` (Hopper).  Each
   ``.cu`` compiles to its own object in parallel, then one link.
@@ -32,6 +33,7 @@ KERNEL_DIR = os.path.join(BUILD_ROOT, "torch_kernels")
 HOST_DIR = os.path.join(BUILD_ROOT, "torch_host")
 
 NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+HOST_SOURCES = [os.path.join(CSRC, f) for f in ("host_stages.cpp", "host_bwt.cpp", "host_codec.cpp")]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -102,7 +104,8 @@ def _build_host(so: str, sources: list[str]) -> None:
     tag = f".{os.getpid()}.tmp"
     cxx = os.environ.get("CXX", "g++")
     _run(
-        [[cxx, "-O3", "-march=native", "-fPIC", "-shared", *sources, "-o", so + tag]],
+        [[cxx, "-O3", "-march=native", "-fPIC", "-shared", "-pthread", *sources,
+          "-o", so + tag]],
         os.path.join(HOST_DIR, "build.log"),
     )
     os.replace(so + tag, so)
@@ -130,7 +133,7 @@ def load_host() -> ctypes.CDLL:
     return _load(
         "host",
         os.path.join(HOST_DIR, "libbz3_host.so"),
-        [os.path.join(CSRC, "host_stages.cpp"), os.path.join(CSRC, "host_bwt.cpp")],
+        HOST_SOURCES,
         _build_host,
     )
 

@@ -9,7 +9,9 @@
   or K3a/K3b for rows wider than one launch chunk;
 - ``cm_encode_resumable`` / ``cm_decode_resumable`` / ``cm_decode_stream``:
   the CM coder in launches of a chunk of steps each, CUDA kernels K3a,
-  K3b and K3c (``cm_cuda``).
+  K3b and K3c (``cm_cuda``);
+- ``BlockStages`` / ``block_stages(device)``: the single-block stage
+  namespace that the block codec runs on one device (``stages``).
 
 Each kernel wrapper takes its plain PyTorch version (``crc32``, ``lzp``,
 ``cm``) for tensors on the CPU.
@@ -26,8 +28,11 @@ from .cm_cuda import (
 from .crc32_cuda import crc32_batch
 from .lzp_cuda import lzp_decode, lzp_encode
 from .rle import rle_decode_batch, rle_encode_batch
+from .stages import BlockStages, block_stages
 
 __all__ = [
+    "BlockStages",
+    "block_stages",
     "bwt_forward_batch",
     "bwt_inverse_batch",
     "cm_decode",

@@ -59,7 +59,7 @@ import torch
 
 from .container.bound import SMALL_BLOCK_THRESHOLD, MiB, bound
 from .errors import Bz3Error, BZ3_ERR_BWT, BZ3_ERR_CRC, BZ3_ERR_MALFORMED_HEADER
-from .models.block_codec import parse_block_header
+from .models.block_codec import parse_block_header, size_before_bwt
 from .ops import host
 from .ops.device import cm_cuda, crc32_cuda, lzp_cuda, rle
 from .ops.device.bwt import bwt_forward_batch, bwt_inverse_batch
@@ -377,12 +377,7 @@ class DevicePipeline:
             raise Bz3Error(BZ3_ERR_MALFORMED_HEADER)
         if orig_size > bnd or orig_size < 0:
             raise Bz3Error(BZ3_ERR_MALFORMED_HEADER)
-        if hdr.model & 2:
-            sbb = hdr.lzp_size
-        elif hdr.model & 4:
-            sbb = hdr.rle_size
-        else:
-            sbb = orig_size
+        sbb = size_before_bwt(hdr, orig_size)
         if hdr.bwt_idx > sbb or sbb > self.width:
             raise Bz3Error(BZ3_ERR_MALFORMED_HEADER)
         return hdr, sbb

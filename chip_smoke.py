@@ -28,26 +28,34 @@ JSON line:
 6. main_shapes - K1 and K2 on that path's own rows (post-prepass,
              post-BWT, [8, ~16 Mi]): timed, K2(K1(u)) == u, and each
              against its plain version on every row's first 2 KiB;
-7. parity_prepass - K4 (CRC lane scan), K5 (LZP encode) and K6 (LZP
+7. surface - the public surface around the main path at -b 16, on
+             main's data and stream: ``Bz3Codec`` on one block (K1, K2
+             and K4 at one row), ``test_file`` and ``python -m
+             bzip3_tpu_torch -t`` on the stream (rc 0) and on a damaged
+             one (rc 1), ``recover_file`` on four blocks, three damaged,
+             each damaged block's bytes held against the same chain on
+             the host C++ and the damaged LZP size driving K3b, and the
+             native and hybrid engines, their streams equal to main's;
+8. parity_prepass - K4 (CRC lane scan), K5 (LZP encode) and K6 (LZP
              decode) against their plain versions on CPU copies of the
              same rows of <= 4 KiB (for K5/K6 also every hazard of their
              windows, ``lzp_hazards``, and K6 cut at max_out), byte for
              byte (K4 at three lane counts), K4's CRCs against the host
              C++, and each kernel's time a byte on one row;
-8. main_prepass - the device prepass chain: 8 blocks x 16 MiB (text,
+9. main_prepass - the device prepass chain: 8 blocks x 16 MiB (text,
              log lines where LZP fires, a sparse block where RLE fires)
              through ``compress_file`` / ``decompress_file`` with
              ``device_prepass=True``; the stream must equal the default
              path's, with LZP and RLE each kept on some block;
-9. prepass_shapes - K4, K5 and K6 on that phase's own [8, 16 Mi] rows,
+10. prepass_shapes - K4, K5 and K6 on that phase's own [8, 16 Mi] rows,
              timed, each checked in full against the host C++ (and K4
              with the lane combine, as encode/crc runs it); K5/K6's
              windows and events of each row, their bounds by bytes and
              by the L2 round trip;
-10. parity_resume - K3a, K3b and K3c (the resumable CM kernels) against
+11. parity_resume - K3a, K3b and K3c (the resumable CM kernels) against
              their plain versions on CPU copies of the same rows, in
              launches of 256 steps, byte for byte, and against K1/K2;
-11. main_b32 - the device path at -b 32: a text block and a log block
+12. main_b32 - the device path at -b 32: a text block and a log block
              of 32 MiB through ``compress_file`` / ``decompress_file``,
              CM-coded by K3a/K3b in two launches of 16 Mi steps, each
              launch timed with CUDA events as it runs; then K1 in one
@@ -55,7 +63,7 @@ JSON line:
              one launch on them the rows K3b gave back (K3a/K3b against
              K1/K2, whose body they share, timed in one call), and K3b
              at the full width must equal the plain decoder on a prefix;
-12. main_oversize - one 144 MiB block at -b 144, past the 128 MiB
+13. main_oversize - one 144 MiB block at -b 144, past the 128 MiB
              device-block cap: the host-BWT hybrid (host SA-IS, K3a, K3c,
              host inverse BWT), its launches timed as they run, the host
              SA-IS held against the device BWT, and K3a and K3c at the
@@ -65,7 +73,7 @@ JSON line:
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a card, or outside a checkout of the repository, it
-exits non-zero before printing any result.  About 6 minutes in all.
+exits non-zero before printing any result.  About 9 minutes in all.
 """
 
 from __future__ import annotations
@@ -112,6 +120,7 @@ DEFAULT_PATH = ("cm_encode", "cm_decode")
 PREPASS_PATH = ("cm_encode", "cm_decode", "crc_lanes", "lzp_encode", "lzp_decode")
 B32_PATH = ("cm_encode_resume", "cm_decode_resume")
 OVERSIZE_PATH = ("cm_encode_resume", "cm_decode_stream")
+SURFACE_PATH = ("cm_encode", "cm_decode", "crc_lanes", "cm_decode_resume")
 
 
 def _require(cond, what) -> None:
@@ -488,14 +497,14 @@ def _payloads(stream: bytes, bs: int) -> list[tuple]:
     return out
 
 
-def phase_main(card: str, data: bytes, bs: int, blocks: int) -> dict:
+def phase_main(card: str, data: bytes, bs: int, blocks: int) -> tuple[dict, bytes]:
     """The main path at full width: ``blocks`` x ``bs`` through the
-    stream API on the card."""
-    _, _, out = _round_trip(card, "main", data, bs, blocks)
+    stream API on the card.  (result line, compressed stream)"""
+    _, stream, out = _round_trip(card, "main", data, bs, blocks)
     launches = out["launches"]
     _require({k for k, v in launches.items() if v} == set(DEFAULT_PATH), launches)
     emit(out)
-    return out
+    return out, stream
 
 
 def _timed(fn):
@@ -513,18 +522,18 @@ def _timed(fn):
 
 class _LaunchTimes:
     """CUDA-event times of the launches made through the named C entry
-    points of ``cm_cuda`` while active: two events on the launching
-    stream around each launch, so a main path's own K3a-K3c launches are
-    timed as they run, with no second run and no synchronise."""
+    points of the kernel wrappers (``cm_cuda``, ``crc32_cuda``,
+    ``lzp_cuda``) while active: two events on the launching stream
+    around each launch, so a main path's own launches are timed as they
+    run, with no second run and no synchronise."""
 
     def __init__(self, *names: str):
         self.events = {n: [] for n in names}
 
     def __enter__(self):
         import torch
-        from bzip3_tpu_torch.ops.device import cm_cuda
 
-        plain = cm_cuda.entry
+        plain = _wrappers()[0].entry
 
         def entry(name, *args, **kw):
             fn = plain(name, *args, **kw)
@@ -542,13 +551,14 @@ class _LaunchTimes:
 
             return timed
 
-        self._restore = (cm_cuda, plain)
-        cm_cuda.entry = entry
+        self._restore = plain
+        for mod in _wrappers():
+            mod.entry = entry
         return self
 
     def __exit__(self, *exc) -> None:
-        mod, plain = self._restore
-        mod.entry = plain
+        for mod in _wrappers():
+            mod.entry = self._restore
 
     def ms(self, name: str) -> tuple[float, int]:
         """(summed milliseconds, launches) of entry point ``name``."""
@@ -1289,6 +1299,220 @@ def phase_main_oversize(card: str, data: bytes, b32: dict, prefix: int = 2048) -
     return out
 
 
+SURFACE_DIR = os.path.join(ROOT, "_build", "surface")
+
+
+def _chunks(stream: bytes, bs: int) -> list[tuple[int, bytes]]:
+    """(orig_size, block bytes) of each block of a .bz3 stream."""
+    from bzip3_tpu_torch.container.stream import iter_chunks
+
+    return [(o, b) for _, o, b in iter_chunks(io.BytesIO(stream[9:]), bs)]
+
+
+def _stream(bs: int, chunks: list[tuple[int, bytes]]) -> bytes:
+    import struct
+
+    return b"BZ3v1" + struct.pack("<I", bs) + b"".join(
+        struct.pack("<II", len(b), o) + b for o, b in chunks)
+
+
+def _cli(*args: str) -> tuple[int, float, str]:
+    """(exit code, wall seconds, standard error) of ``python -m
+    bzip3_tpu_torch`` with ``args``, run from the checkout's root."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "bzip3_tpu_torch", *args], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    return r.returncode, time.perf_counter() - t0, r.stderr[-2000:]
+
+
+def _damage(chunks: list[tuple[int, bytes]], bs: int) -> tuple[list, int]:
+    """Four of main's blocks, three damaged: block 1 with a payload byte
+    flipped, block 2 with its stored CRC flipped, and block 3 (the first
+    of main's blocks 3.. whose header has an LZP size) with that size set
+    to bound(bs), past one 16 Mi-step launch.  (blocks, main's index of
+    block 3)"""
+    import struct
+    from bzip3_tpu_torch.container.bound import bound
+    from bzip3_tpu_torch.models.block_codec import parse_block_header
+
+    j = next((i for i in range(3, len(chunks))
+              if parse_block_header(chunks[i][1]).model & 2), None)
+    _require(j is not None, "no block of main's stream has an LZP size to damage")
+    out = [chunks[0], chunks[1], chunks[2], chunks[j]]
+    b = bytearray(out[1][1])
+    b[len(b) // 2] ^= 0xFF
+    out[1] = (out[1][0], bytes(b))
+    b = bytearray(out[2][1])
+    b[0] ^= 0x01
+    out[2] = (out[2][0], bytes(b))
+    b = bytearray(out[3][1])
+    struct.pack_into("<i", b, 9, bound(bs))
+    out[3] = (out[3][0], bytes(b))
+    return out, j
+
+
+def phase_surface(card: str, data: bytes, bs: int, blocks: int, stream: bytes) -> dict:
+    """The public surface around the main path, at -b 16 on main's data
+    and stream (``stream``): the block API (``Bz3Codec`` on one block,
+    K1, K2 and K4 one row a launch), test mode (``test_file``, and
+    ``python -m bzip3_tpu_torch -t`` on the stream and on a damaged one),
+    recover mode (``recover_file`` on four blocks, three damaged: the
+    damaged header's block goes through K3b), and the native and hybrid
+    engines.  Every stream equals main's, and each damaged block's
+    best-effort bytes equal the same chain run by the host C++
+    (``ops.native.STAGES``: host CM decode, inverse BWT, un-LZP, un-RLE)."""
+    import contextlib
+    import torch
+    from bzip3_tpu_torch import Bz3Codec, recover_file, test_file
+    from bzip3_tpu_torch.engines import DeviceEngine, HybridEngine, NativeEngine
+    from bzip3_tpu_torch.models.block_codec import decode_block_recover
+    from bzip3_tpu_torch.ops import native
+
+    t_phase = time.perf_counter()
+    # main's stream ends in an empty block (an exact multiple of bs at -j 8)
+    chunks = _chunks(stream, bs)[:blocks]
+    _require([o for o, _ in chunks] == [bs] * blocks, [o for o, _ in chunks])
+    os.makedirs(SURFACE_DIR, exist_ok=True)
+    out = {"phase": "surface", "card": card, "block_size": bs}
+    reset_launches()
+
+    # block API: one block through Bz3Codec, stage by stage on the card
+    codec = Bz3Codec(bs, device="cuda")
+    with _LaunchTimes("bz3t_cm_encode", "bz3t_cm_decode", "bz3t_crc_lanes") as lt:
+        t0 = time.perf_counter()
+        blk = codec.encode_block(data[:bs])
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = codec.decode_block(blk, bs)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        one_row = {k: lt.ms(f"bz3t_{k}") for k in ("cm_encode", "cm_decode", "crc_lanes")}
+    _require(blk == chunks[0][1], "Bz3Codec's block differs from main's")
+    _require(back == data[:bs], "Bz3Codec's decode differs from the input")
+    out["block_api"] = {
+        "encode_s": enc_s, "decode_s": dec_s, "launches": launch_counts(),
+        "k1_one_row_ms": one_row["cm_encode"][0], "k2_one_row_ms": one_row["cm_decode"][0],
+        # K4 on an idle card: each launch's time includes the host's call
+        "k4_one_row_ms": one_row["crc_lanes"][0] / max(1, one_row["crc_lanes"][1]),
+        "k4_launches": one_row["crc_lanes"][1],
+        "k1_ns_per_bit_step": one_row["cm_encode"][0] * 1e6 / (8 * bs)}
+
+    # test mode: the library call, then the CLI on main's stream and on a
+    # damaged one
+    eng = DeviceEngine("cuda")
+    t0 = time.perf_counter()
+    rw = test_file(io.BytesIO(stream), eng, batch_size=blocks)
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    _require(rw == (len(stream), len(data)), rw)
+    bad, j = _damage(chunks, bs)
+    good_path = os.path.join(SURFACE_DIR, "main.bz3")
+    bad_path = os.path.join(SURFACE_DIR, "damaged.bz3")
+    with open(good_path, "wb") as f:
+        f.write(stream)
+    bad_stream = _stream(bs, bad)
+    with open(bad_path, "wb") as f:
+        f.write(bad_stream)
+    rc_good, cli_good_s, err = _cli("-t", good_path)
+    _require(rc_good == 0, f"-t on main's stream: rc {rc_good}: {err}")
+    rc_bad, cli_bad_s, err = _cli("-t", bad_path)
+    _require(rc_bad == 1, f"-t on the damaged stream: rc {rc_bad}: {err}")
+    out["test"] = {"test_file_s": test_s, "cli_t_s": cli_good_s, "cli_t_damaged_s": cli_bad_s,
+                   "cli_t_rc": rc_good, "cli_t_damaged_rc": rc_bad}
+
+    # recover mode on the card, against the host C++ chain
+    src = [data[:bs], data[bs : 2 * bs], data[2 * bs : 3 * bs], data[j * bs : (j + 1) * bs]]
+    before = launch_counts()
+    err = io.StringIO()
+    rec = io.BytesIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rw = recover_file(io.BytesIO(bad_stream), rec, eng, batch_size=4)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    got = rec.getvalue()
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    _require(rw == (len(bad_stream), 4 * bs), rw)
+    _require(len(got) == 4 * bs, len(got))
+    pieces = [got[i * bs : (i + 1) * bs] for i in range(4)]
+    _require(pieces[0] == src[0] and pieces[2] == src[2],
+             "recover: the intact or the CRC-flipped block differs from the source")
+    t0 = time.perf_counter()
+    host = [decode_block_recover(b, o, bs, native.STAGES) for o, b in (bad[1], bad[3])]
+    host_s = time.perf_counter() - t0
+    _require(all(not ok for _, ok in host), "a damaged block decoded on the host")
+    diff = [int(np.count_nonzero(np.frombuffer(pieces[i], np.uint8) != np.frombuffer(h, np.uint8)))
+            for i, (h, _) in zip((1, 3), host)]
+    _require(diff == [0, 0], f"recover: best-effort bytes differ from the host chain: {diff}")
+    _require(launches["cm_decode_resume"] > 0, f"recover launched no K3b: {launches}")
+    warns = err.getvalue().count("bzip3: Writing invalid block.")
+    _require(warns == 3, f"{warns} 'Writing invalid block.' lines, not 3")
+    out["recover"] = {
+        "blocks": 4, "damaged_header_block_of_main": j, "recover_s": rec_s,
+        "host_chain_s": host_s, "launches": launches, "invalid_block_lines": warns,
+        "best_effort_bytes_equal_to_source": [pieces[i] == src[i] for i in (1, 3)]}
+
+    # native (2 blocks) and hybrid (all, half on the card) engines
+    mib = lambda n, s: n / MiB / s  # noqa: E731
+    nat = NativeEngine(0)
+    t0 = time.perf_counter()
+    nb = nat.encode_blocks([data[:bs], data[bs : 2 * bs]], bs)
+    n_enc = time.perf_counter() - t0
+    _require(nb == [chunks[0][1], chunks[1][1]], "native blocks differ from main's")
+    t0 = time.perf_counter()
+    nd = nat.decode_blocks([(b, bs) for b in nb], bs)
+    n_dec = time.perf_counter() - t0
+    _require(nd == [data[:bs], data[bs : 2 * bs]], "native decode differs")
+    os.environ["BZ3_TPU_HYBRID_MIN_MIB"] = "0"
+    try:
+        hyb = HybridEngine(0, device_share=0.5, device="cuda")
+        raw = [data[i * bs : (i + 1) * bs] for i in range(blocks)]
+        before = launch_counts()
+        t0 = time.perf_counter()
+        hb = hyb.encode_blocks(raw, bs)
+        torch.cuda.synchronize()
+        h_enc = time.perf_counter() - t0
+        _require(hb == [b for _, b in chunks], "hybrid blocks differ from main's")
+        t0 = time.perf_counter()
+        hd = hyb.decode_blocks([(b, bs) for b in hb], bs)
+        torch.cuda.synchronize()
+        h_dec = time.perf_counter() - t0
+        _require(hd == raw, "hybrid decode differs")
+        h_launch = {k: v - before[k] for k, v in launch_counts().items()}
+        _require(h_launch["cm_encode"] > 0 and h_launch["cm_decode"] > 0,
+                 f"the hybrid's device share launched no K1/K2: {h_launch}")
+    finally:
+        del os.environ["BZ3_TPU_HYBRID_MIN_MIB"]
+    out["engines"] = {
+        "host_cores": os.cpu_count(), "host_cores_usable": len(os.sched_getaffinity(0)),
+        "native_blocks": 2, "native_encode_mib_s": mib(2 * bs, n_enc),
+        "native_decode_mib_s": mib(2 * bs, n_dec),
+        "hybrid_blocks": blocks, "hybrid_share": 0.5, "hybrid_launches": h_launch,
+        "hybrid_encode_mib_s": mib(blocks * bs, h_enc),
+        "hybrid_decode_mib_s": mib(blocks * bs, h_dec)}
+    out["launches"] = launch_counts()
+    _require(all(out["launches"][k] for k in SURFACE_PATH), out["launches"])
+    out["phase_s"] = time.perf_counter() - t_phase
+
+    # K4 on one 16 MiB row again, queued behind a sleeping kernel, so that
+    # the host's time to launch it is off the card's clock (the block
+    # API's launches ran on an idle card); after the counts are read
+    from bzip3_tpu_torch.ops.device import crc32_cuda
+
+    row = torch.frombuffer(bytearray(data[:bs]), dtype=torch.uint8).view(1, bs).cuda()
+    lens = torch.tensor([bs], dtype=torch.int32, device=row.device)
+    lanes = crc32_cuda.lanes_for(row)
+    out["block_api"].update(
+        k4_one_row_lanes=lanes,
+        k4_one_row_queued_ms=_cuda_ms(lambda: crc32_cuda.crc_lane_scan(row, lens, lanes), 20,
+                                      queue=True))
+    emit(out)
+    return out
+
+
 def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict]:
     """K3a-K3c: times at [2, 32 Mi] (K3a, K3b; main_b32's own launches)
     and at the oversize row (K3c), launches from those phases.  Beside the
@@ -1344,7 +1568,8 @@ def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict
 
 
 def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: dict,
-                 pshapes: dict, resume: dict, b32: dict, over: dict, resources: dict) -> dict:
+                 pshapes: dict, resume: dict, b32: dict, over: dict, resources: dict,
+                 surface: dict) -> dict:
     """The kernels of the main paths: launches from the main phases
     (K1/K2 from the default path, K4-K6 from the device prepass chain,
     K3a-K3c from main_b32 and main_oversize), times at their rows, plain
@@ -1424,6 +1649,19 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
                         "busiest_row": dict(zip(pshapes[f"{k}_stats"]["cols"], st[busiest]))})
         rows.append(row)
     rows[2:2] = _resume_rows(parity, resume, b32, over)
+    # the surface phase's launches (its own path), and K1/K2/K4 at one row
+    one = surface["block_api"]
+    for row in rows:
+        kid = row["name"].split()[0]
+        key = {"K1": "cm_encode", "K2": "cm_decode", "K3b": "cm_decode_resume",
+               "K4": "crc_lanes"}.get(kid)
+        if key is not None:
+            row["launches_surface"] = surface["launches"][key]
+        if kid in ("K1", "K2"):
+            row["ms_one_row"] = one[f"{kid.lower()}_one_row_ms"]
+        if kid == "K4":
+            row["ms_one_row"] = one["k4_one_row_queued_ms"]
+            row["ms_one_row_idle_card"] = one["k4_one_row_ms"]
     return {"kernels": rows}
 
 
@@ -1451,8 +1689,9 @@ def main() -> int:
     phase_golden(smi)
     bs, blocks = 16 * MiB, 8
     data = corpus(blocks * bs, seed=0)
-    main_res = phase_main(smi, data, bs, blocks)
+    main_res, main_stream = phase_main(smi, data, bs, blocks)
     shapes = phase_main_shapes(smi, data, bs, blocks)
+    surface = phase_surface(smi, data, bs, blocks, main_stream)
     # 4 text blocks, 3 of log lines, 1 sparse: LZP and RLE both kept
     pdata = data[: 4 * bs] + log_corpus(3 * bs, seed=1) + sparse_block(bs, seed=2)
     pmain = phase_main_prepass(smi, pdata, bs, blocks)
@@ -1462,7 +1701,7 @@ def main() -> int:
     b32 = phase_main_b32(smi, data[: 2 * bs] + log[: 2 * bs])
     over = phase_main_oversize(smi, data[: 6 * bs] + log, b32)
     emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over,
-                      built["resources"]))
+                      built["resources"], surface))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
