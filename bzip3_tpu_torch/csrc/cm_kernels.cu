@@ -76,6 +76,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cm_coder.cuh"  // split_hi, adapt, renorm_shift, renorm
+
 namespace {
 
 constexpr int kC0 = 256;
@@ -203,21 +205,12 @@ __device__ __forceinline__ Pred predict(const Model &m, const uint16_t *r1,
     return q;
 }
 
-// The range split (high - low) * scale >> 18 as one high product,
-// umulhi(high - low, scale << 14), exact as scale < 2^18.  On an H100 a
-// dependent IMAD.HI + IADD takes 9 cycles, IMAD.WIDE + SHF + IADD 23.
-__device__ __forceinline__ uint32_t split_hi(uint32_t low, uint32_t high, uint32_t scale14) {
-    return __umulhi(high - low, scale14);
-}
-
-// A node's counter updates with rates 2/4/6 (src/libbz3.c:347-348),
-// stored into the tables when `on` and else into junk[0..3]: both
-// outcomes of the bit are computed and one selected, and the stores'
-// addresses too, so a warp whose lanes code different bits, or of which
-// only some lanes update, neither branches nor diverges.
-__device__ __forceinline__ int adapt(int v, uint32_t bit, int rate) {
-    return bit ? v + ((v ^ 65535) >> rate) : v - (v >> rate);
-}
+// A node's counter updates (adapt, cm_coder.cuh) with rates 2/4/6
+// (src/libbz3.c:347-348), stored into the tables when `on` and else
+// into junk[0..3]: both outcomes of the bit are computed and one
+// selected, and the stores' addresses too, so a warp whose lanes code
+// different bits, or of which only some lanes update, neither branches
+// nor diverges.
 __device__ __forceinline__ void update_if(const Model &m, uint16_t *r1, uint32_t ctx,
                                           const Pred &q, uint32_t bit, bool on,
                                           uint16_t *junk) {
@@ -232,21 +225,6 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int count) {
     asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
-// The renorm after a bit in closed form: 8 times the bytes the
-// reference's renorm loop (src/libbz3.c:331-494) shifts out.  It runs
-// while the top byte of low ^ high is 0, and each turn shifts the next
-// byte of low ^ high up (the bytes shifted in differ in every bit), so
-// it takes the count of leading zero bytes: 4 when low == high.
-__device__ __forceinline__ uint32_t renorm_shift(uint32_t low, uint32_t high) {
-    return __clz(low ^ high) & 0x38u;
-}
-
-// low << sh and (high << sh) | (2^sh - 1) for sh in [0, 32].
-__device__ __forceinline__ void renorm(uint32_t &low, uint32_t &high, uint32_t sh) {
-    low = __funnelshift_lc(0u, low, sh);
-    high = __funnelshift_lc(0xFFFFFFFFu, high, sh);
 }
 
 // A row's byte history, which every modelling thread tracks: the last

@@ -74,14 +74,15 @@ class NativeEngine:
 class DeviceEngine:
     """The block pipeline on ``device``.  ``device_prepass``, ``host_crc``
     and ``device_crc_verify`` pass through to the pipelines
-    (``pipeline.py``); None reads the JAX package's variables."""
+    (``pipeline.py``); None reads the JAX package's variables.  ``profile``
+    turns the stage timer (``timer``) on; None reads ``BZ3_TPU_PROFILE``."""
 
     name = "device"
 
     def __init__(
         self,
         device="cuda",
-        profile: bool = False,
+        profile: bool | None = None,
         device_prepass: bool | None = None,
         host_crc: bool | None = None,
         device_crc_verify: bool | None = None,

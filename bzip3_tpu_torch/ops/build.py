@@ -8,12 +8,13 @@ Two shared libraries, each with a plain C interface loaded by ctypes:
   and pthread block pool from ``csrc/host_codec.cpp``, compiled with
   ``g++ -pthread``.  Host code on every machine.
 - ``libbz3_kernels.so``: the hand-written CUDA kernels from
-  ``csrc/*.cu``, compiled with ``nvcc`` for ``sm_90a`` (Hopper).  Each
-  ``.cu`` compiles to its own object in parallel, then one link.
+  ``csrc/*.cu`` (and the headers ``csrc/*.cuh`` they share), compiled
+  with ``nvcc`` for ``sm_90a`` (Hopper).  Each ``.cu`` compiles to its
+  own object in parallel, then one link.
 
 Both go to ``_build/`` at the root of the checkout (listed in
-``.gitignore``) and are rebuilt when a source is newer than the
-library.  A build or load failure raises: nothing falls back.
+``.gitignore``) and are rebuilt when a source or header is newer than
+the library.  A build or load failure raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -111,14 +112,14 @@ def _build_host(so: str, sources: list[str]) -> None:
     os.replace(so + tag, so)
 
 
-def _load(name: str, so: str, sources: list[str], builder) -> ctypes.CDLL:
+def _load(name: str, so: str, sources: list[str], builder, headers=()) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         if not sources:
             raise BuildError(f"no sources for {name} under {CSRC}")
-        if _stale(so, sources):
+        if _stale(so, [*sources, *headers]):
             builder(so, sources)
         try:
             lib = ctypes.CDLL(so)
@@ -145,6 +146,7 @@ def load_kernels() -> ctypes.CDLL:
         os.path.join(KERNEL_DIR, "libbz3_kernels.so"),
         sorted(glob.glob(os.path.join(CSRC, "*.cu"))),
         _build_kernels,
+        glob.glob(os.path.join(CSRC, "*.cuh")),
     )
 
 

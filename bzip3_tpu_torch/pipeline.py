@@ -15,6 +15,11 @@ JAX package's ``encode_core_full`` / ``decode_core_full``:
              ->  K1  ->  meta and payload down  ->  header framing
     decode:  K2  ->  inverse BWT  ->  un-LZP (K6)  ->  un-RLE  ->  CRC (K4)
 
+``BZ3_TPU_CM`` selects the CM encoder of both paths as in the JAX
+package (``cm_impl``): K1, or under ``parallel`` the parallel encoder
+(P1/P2, ``cm_parallel_cuda``) for waves up to ``CM_PARALLEL_MAX_N`` wide;
+a row it does not certify is coded again by K1 (``reencoded_rows``).
+
 Two more switches of the JAX pipeline select where the default path's
 checksums run: ``host_crc=False`` (``BZ3_TPU_HOST_CRC=0``) takes the
 encode CRC from K4, and ``device_crc_verify`` (``BZ3_TPU_DEVICE_CRC_VERIFY=1``)
@@ -61,7 +66,7 @@ from .container.bound import SMALL_BLOCK_THRESHOLD, MiB, bound
 from .errors import Bz3Error, BZ3_ERR_BWT, BZ3_ERR_CRC, BZ3_ERR_MALFORMED_HEADER
 from .models.block_codec import parse_block_header, size_before_bwt
 from .ops import host
-from .ops.device import cm_cuda, crc32_cuda, lzp_cuda, rle
+from .ops.device import cm_cuda, cm_parallel_cuda, crc32_cuda, lzp_cuda, rle
 from .ops.device.bwt import bwt_forward_batch, bwt_inverse_batch
 from .utils.profiling import StageTimer
 
@@ -73,6 +78,25 @@ _S32 = struct.Struct("<i")
 # on an H100 (chip_smoke.py), so 256 MiB of rows needs ~29 GB of the
 # card's 80 GB.
 WAVE_BYTES = 256 << 20
+
+# Widest wave (padded row width) the parallel CM encoder takes under
+# BZ3_TPU_CM=parallel; wider waves run K1.  The JAX package's
+# _CM_PARALLEL_MAX_N.
+CM_PARALLEL_MAX_N = 2 << 20
+
+
+def cm_impl() -> str:
+    """The CM encoder that ``BZ3_TPU_CM`` selects, read as the JAX
+    package's ``_cm_impl()`` (pipeline.py:53-62) reads it: "parallel" for
+    ``parallel`` and for any value it does not know, else "k1".
+
+    The port has one serial encoder, K1 (its plain version on the CPU),
+    so ``pallas`` and ``scan`` both take it.  ``auto`` takes it too, on
+    either device: the JAX package's ``auto`` picks its accelerator's
+    kernel on the TPU but the parallel encoder on its other backends.
+    The bytes are the same on every route."""
+    mode = os.environ.get("BZ3_TPU_CM", "auto")
+    return "k1" if mode in ("auto", "pallas", "scan") else "parallel"
 
 
 def _round_up(n: int, m: int) -> int:
@@ -283,21 +307,30 @@ class DevicePipeline:
         with t.stage("encode/bwt"):
             u, idx = bwt_forward_batch(cur, lens)
         with t.stage("encode/cm"):
-            payload, plens = cm_cuda.cm_encode(u, lens)
+            if cm_impl() == "parallel" and cur.shape[1] <= CM_PARALLEL_MAX_N:
+                payload, plens, ok = cm_parallel_cuda.cm_encode_parallel(u, lens, timer=t)
+            else:
+                payload, plens = cm_cuda.cm_encode(u, lens)
+                ok = plens <= payload.shape[1]
         with t.stage("encode/d2h"):
-            cols = _to_host({"idx": idx, "plens": plens, **meta})
+            cols = _to_host({"idx": idx, "plens": plens, "ok": ok, **meta})
             w = payload.shape[1]
             pay = payload[:, : min(max(cols["plens"]), w)].cpu().numpy()
         with t.stage("encode/assemble"):
             for j, i in enumerate(idxs):
                 plen = cols["plens"][j]
-                if plen <= w:
+                if cols["ok"][j]:
                     body = pay[j, :plen].tobytes()
                 else:
-                    # Payload past the buffer (its true length is known):
-                    # exact re-encode of this row with room for all of it.
+                    # A payload past the buffer (K1 reports its true
+                    # length), or a row the parallel encoder did not
+                    # certify: K1 codes the row again, with room for all
+                    # of it; never emitted from the first output.
                     self.reencoded_rows += 1
-                    p, pl = cm_cuda.cm_encode(u[j : j + 1], lens[j : j + 1], plen)
+                    width = max(plen, w)
+                    p, pl = cm_cuda.cm_encode(u[j : j + 1], lens[j : j + 1], width)
+                    if int(pl[0]) > width:  # an uncertified row's length was wrong
+                        p, pl = cm_cuda.cm_encode(u[j : j + 1], lens[j : j + 1], int(pl[0]))
                     body = p[0, : int(pl[0])].cpu().numpy().tobytes()
                 out[i] = _block_bytes(cols["crc"][j], cols["idx"][j], cols["model"][j],
                                       cols["lzp"][j], cols["rle"][j], body)

@@ -1,24 +1,52 @@
-"""Per-stage wall-clock accounting for the block pipeline.
+"""Tracing and per-stage wall-clock accounting (counterpart of the JAX
+package's ``utils/profiling.py``).
 
-``StageTimer`` sums wall time per named stage.  Work on a CUDA device
-is asynchronous, so a timer given ``sync`` (``torch.cuda.synchronize``)
-calls it before reading the clock at the end of each stage; the stage
-then holds its own device time instead of handing it to the next
-stage that waits on the device.
+- ``trace(log_dir)``: a ``torch.profiler`` trace of the CPU and, where
+  there is a card, of CUDA kernels, written as a Chrome trace into
+  ``log_dir`` (``chrome://tracing`` or Perfetto read it).
+- ``StageTimer``: wall time and calls per named stage, on when
+  ``BZ3_TPU_PROFILE=1`` unless told otherwise.  Work on a CUDA device
+  is asynchronous, so a timer given ``sync`` (``torch.cuda.synchronize``)
+  calls it before reading the clock at the end of each stage; the stage
+  then holds its own device time instead of handing it to the next stage
+  that waits on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Callable
 
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block inside into ``log_dir``/trace_<pid>_<ns>.json
+    (CPU activity, and CUDA activity when a card is present); yields the
+    ``torch.profiler.profile`` object."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
 
 class StageTimer:
-    """Accumulates wall time and calls per named stage."""
+    """Accumulates wall time and calls per named stage; ``enabled=None``
+    reads ``BZ3_TPU_PROFILE`` (on at 1)."""
 
-    def __init__(self, enabled: bool = False, sync: Callable[[], None] | None = None):
+    def __init__(self, enabled: bool | None = None, sync: Callable[[], None] | None = None):
+        if enabled is None:
+            enabled = os.environ.get("BZ3_TPU_PROFILE", "0") == "1"
         self.enabled = enabled
         self.sync = sync
         self.totals: dict[str, float] = defaultdict(float)
@@ -37,3 +65,11 @@ class StageTimer:
                 self.sync()
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
+
+    def summary(self) -> str:
+        lines = []
+        for name in sorted(self.totals, key=self.totals.get, reverse=True):
+            lines.append(
+                f"{name:20s} {self.totals[name]*1e3:10.2f} ms  x{self.counts[name]}"
+            )
+        return "\n".join(lines)

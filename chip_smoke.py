@@ -14,7 +14,8 @@ JSON line:
              beside them the pointer chase of scripts/torch_sm_latency.cu;
    latency - the L2 round trip (an 8 MiB table) and a device memory
              one (256 MiB) of a dependent load, one thread; the cycles
-             of a warp's __match_any_sync;
+             of a warp's __match_any_sync; the range coder's bit step
+             alone (P2's dependent chain, its serial bound);
 3. parity  - K1 (CM encode) and K2 (CM decode) on the card against
              their plain PyTorch versions on CPU copies of the same
              10 rows (among them a confident model meeting random bytes,
@@ -68,7 +69,25 @@ JSON line:
              host inverse BWT), its launches timed as they run, the host
              SA-IS held against the device BWT, and K3a and K3c at the
              full width against the plain coders on a prefix; K3a's and
-             K3c's ns a bit step against K1's and K2's from main_b32.
+             K3c's ns a bit step against K1's and K2's from main_b32;
+14. parity_parallel - P1 (the chain window scans, each mode and rate)
+             and P2 (the range pass) against their plain versions: the
+             parallel CM encoder on the card and on the CPU over the
+             same post-BWT hazard rows at seg 128 and 2048 and in the
+             exact mode, every kernel call held against the CPU run's
+             call on equal inputs, P2 again under an output cap; the
+             card's runs under ``trace`` (torch.profiler), whose Chrome
+             trace must name both kernels;
+15. main_parallel - BZ3_TPU_CM=parallel at -b 2: 16 blocks x 2 MiB of
+             text through ``compress_file`` / ``decompress_file``, P1
+             and P2 timed launch by launch; the stream equal to the K1
+             route's, no row coded again, the golden streams re-encoded
+             on this route; then the encoder against K1 at [1, N] and
+             [16, N] of post-BWT rows with its peak memory a byte, its
+             stage times, and ``torch.sort`` alone at C1's key shape;
+             and every P1 pass of the [16, N] encode against its plain
+             version on the same card tensors, P2's payloads against
+             the plain range pass on each row's first 4 KiB.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -78,9 +97,11 @@ exits non-zero before printing any result.  About 9 minutes in all.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -110,10 +131,19 @@ OPS_PER_BIT = 40
 # windows repeat speculatively (a window's lanes all gather and test).
 OPS_PER_CRC_BYTE = 5
 OPS_PER_LZP_STEP = 18
+# Operations of one P1 event step on one state (start test and select,
+# advance test and select, the counter step: xor, shift, add or subtract,
+# the bit's select) and of one P2 bit step (mask and shift of the factor,
+# the split's high product, the select of low or high, the renorm count
+# and its cap test, four byte tests and stores, two funnel shifts, the
+# count), counted from csrc/cm_parallel_kernels.cu.
+OPS_PER_EVENT = 8
+OPS_PER_P2_BIT = 16
 # Where each kernel stands: "ported" (its first CUDA form) or
 # "redesigned" (rebuilt for the card after it was ported).
 STATUS = {"K1": "redesigned", "K2": "redesigned", "K3a": "redesigned", "K3b": "redesigned",
-          "K3c": "redesigned", "K4": "redesigned", "K5": "redesigned", "K6": "redesigned"}
+          "K3c": "redesigned", "K4": "redesigned", "K5": "redesigned", "K6": "redesigned",
+          "P1": "ported", "P2": "ported"}
 # The kernels of each main path; a main phase fails if one of them did
 # not launch.
 DEFAULT_PATH = ("cm_encode", "cm_decode")
@@ -121,6 +151,9 @@ PREPASS_PATH = ("cm_encode", "cm_decode", "crc_lanes", "lzp_encode", "lzp_decode
 B32_PATH = ("cm_encode_resume", "cm_decode_resume")
 OVERSIZE_PATH = ("cm_encode_resume", "cm_decode_stream")
 SURFACE_PATH = ("cm_encode", "cm_decode", "crc_lanes", "cm_decode_resume")
+PARALLEL_PATH = ("chain_windows", "range_pass", "cm_decode")
+# The reference-made streams under tests/data (bzip3 -e -b 1).
+GOLDEN = ("sample_text.bin.bz3", "sample_mixed.bin.bz3")
 
 
 def _require(cond, what) -> None:
@@ -216,9 +249,9 @@ def _bound(bytes_moved: int, ops: int) -> tuple[float, str]:
 
 
 def _wrappers():
-    from bzip3_tpu_torch.ops.device import cm_cuda, crc32_cuda, lzp_cuda
+    from bzip3_tpu_torch.ops.device import cm_cuda, cm_parallel_cuda, crc32_cuda, lzp_cuda
 
-    return cm_cuda, crc32_cuda, lzp_cuda
+    return cm_cuda, crc32_cuda, lzp_cuda, cm_parallel_cuda
 
 
 def reset_launches() -> None:
@@ -239,6 +272,7 @@ def phase_device(card: str) -> None:
 
 
 LATENCY_SO = os.path.join(ROOT, "_build", "sm_latency", "libsm_latency.so")
+CODER_CHAIN_STEPS = 1 << 22  # bit steps of phase_latency's coder chain
 
 
 def phase_build(card: str) -> dict:
@@ -266,7 +300,7 @@ def phase_build(card: str) -> dict:
     res = build.kernel_resources()
     for k in ("cm_encode_kernel", "cm_decode_kernel", "cm_encode_resume_kernel",
               "cm_decode_resume_kernel", "crc_lane_kernel", "lzp_encode_kernel",
-              "lzp_decode_kernel"):
+              "lzp_decode_kernel", "chain_windows_kernel", "range_pass_kernel"):
         _require(k in res, f"no -Xptxas -v lines for {k}")
     out = {"phase": "build", "card": card, "kernel_dir": build.KERNEL_DIR,
            "kernels_s": round(t_kernels, 3), "host_s": round(t_host, 3), "resources": res}
@@ -316,6 +350,15 @@ def phase_latency(card: str) -> dict:
     reps = lib.sm_latency_reps()
     cyc = res.cpu().tolist()
     out["match_any_cycles"] = {"distinct": cyc[0] / reps, "equal": cyc[1] / reps}
+    # the range coder's bit step alone, P2's dependent chain: its bound
+    lib.sm_coder_chain.argtypes = [ctypes.c_int64, ctypes.c_uint32, ctypes.c_void_p,
+                                   ctypes.c_void_p]
+    steps = CODER_CHAIN_STEPS
+    for seed in (3, 4):  # the first run warms up
+        rc, ms = _timed(lambda s=seed: lib.sm_coder_chain(steps, s, res.data_ptr(), stream))
+        _require(rc == 0, "sm_coder_chain launch failed")
+    out["coder_chain"] = {"steps": steps, "ns": ms * 1e6 / steps,
+                          "cycles": res.cpu().tolist()[0] / steps}
     emit(out)
     return out
 
@@ -429,7 +472,7 @@ def phase_golden(card: str) -> None:
 
     eng = DeviceEngine("cuda")
     res = {}
-    for name in ("sample_text.bin.bz3", "sample_mixed.bin.bz3"):
+    for name in GOLDEN:
         with open(os.path.join(ROOT, "tests", "data", name), "rb") as f:
             golden = f.read()
         plain = io.BytesIO()
@@ -523,9 +566,10 @@ def _timed(fn):
 class _LaunchTimes:
     """CUDA-event times of the launches made through the named C entry
     points of the kernel wrappers (``cm_cuda``, ``crc32_cuda``,
-    ``lzp_cuda``) while active: two events on the launching stream
-    around each launch, so a main path's own launches are timed as they
-    run, with no second run and no synchronise."""
+    ``lzp_cuda``, ``cm_parallel_cuda``) while active: two events on the
+    launching stream around each launch, so a main path's own launches
+    are timed as they run, with no second run and no synchronise.  Each
+    launch's arguments are kept beside its events (``launches``)."""
 
     def __init__(self, *names: str):
         self.events = {n: [] for n in names}
@@ -546,7 +590,7 @@ class _LaunchTimes:
                 t0.record()
                 rc = fn(*a)
                 t1.record()
-                self.events[name].append((t0, t1))
+                self.events[name].append((t0, t1, a))
                 return rc
 
             return timed
@@ -566,7 +610,14 @@ class _LaunchTimes:
 
         torch.cuda.synchronize()
         ev = self.events[name]
-        return sum(t0.elapsed_time(t1) for t0, t1 in ev), len(ev)
+        return sum(t0.elapsed_time(t1) for t0, t1, _ in ev), len(ev)
+
+    def launches(self, name: str) -> list[tuple[float, tuple]]:
+        """(milliseconds, C arguments) of each launch through ``name``."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [(t0.elapsed_time(t1), a) for t0, t1, a in self.events[name]]
 
 
 def _decode_prefix_err(kernel_out: np.ndarray, payload, plens, heads: list[int],
@@ -1299,6 +1350,375 @@ def phase_main_oversize(card: str, data: bytes, b32: dict, prefix: int = 2048) -
     return out
 
 
+@contextlib.contextmanager
+def _env(**kv):
+    """Environment variables set for the block inside, then restored."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def parallel_hazards(n: int) -> list[bytes]:
+    """The JAX package's rows for the parallel CM encoder
+    (tests/test_device_ops.py:226-245), before the BWT: skewed b"aab" and
+    text, rows of differing lengths, an empty row and random bytes."""
+    rng = np.random.default_rng(77)
+    skew = rng.choice(np.frombuffer(b"aab", np.uint8), size=n, p=[0.6, 0.3, 0.1]).tobytes()
+    text = corpus(2 * n, seed=4)
+    return [skew, text[:n], text[n : n + n // 2], b"",
+            rng.integers(0, 256, n // 4, dtype=np.uint8).tobytes()]
+
+
+class _Calls:
+    """The calls of ``cm_parallel_cuda``'s P1 and P2 wrappers while
+    active: (arguments, result, host milliseconds) of each or, with
+    ``check``, what ``check(name, arguments, result)`` returns, right
+    after the call (nothing of the call is kept)."""
+
+    NAMES = ("chain_windows", "range_pass")
+
+    def __init__(self, check=None):
+        self.check = check
+
+    def __enter__(self):
+        from bzip3_tpu_torch.ops.device import cm_parallel_cuda as cp
+
+        self.cp, self.real = cp, {k: getattr(cp, k) for k in self.NAMES}
+        self.calls = {k: [] for k in self.NAMES}
+
+        def wrap(name):
+            def fn(*a):
+                t0 = time.perf_counter()
+                res = self.real[name](*a)
+                ms = (time.perf_counter() - t0) * 1e3
+                self.calls[name].append((a, res, ms) if self.check is None
+                                        else self.check(name, a, res))
+                return res
+            return fn
+
+        for k in self.NAMES:
+            setattr(cp, k, wrap(k))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for k in self.NAMES:
+            setattr(self.cp, k, self.real[k])
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _int_err(a, b) -> int:
+    _require(a.shape == b.shape, f"shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+TRACE_DIR = os.path.join(ROOT, "_build", "trace_parity_parallel")
+
+
+def phase_parity_parallel(card: str, n: int = 1024) -> dict:
+    """P1 (each mode, each rate) and P2 on the card against their plain
+    versions on CPU copies of the same inputs, and the parallel encoder on
+    the card against its CPU run: the hazard rows after the BWT at seg 128
+    and 2048 and in the exact mode.  Every call of the card's run is held
+    against the same call of the CPU run (equal inputs, equal outputs); P2
+    once more with an output cap.  The card's runs go under ``trace``,
+    whose Chrome trace must name both kernels."""
+    import torch
+    from bzip3_tpu_torch.ops.device import cm_parallel, cm_parallel_cuda as cp
+    from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch
+    from bzip3_tpu_torch.utils.profiling import trace
+
+    rows = parallel_hazards(n)
+    arr, lens = _pad(rows, n)
+    l_gpu = torch.from_numpy(lens).cuda()
+    u, _ = bwt_forward_batch(torch.from_numpy(arr).cuda(), l_gpu)
+    u_cpu, l_cpu = u.cpu(), l_gpu.cpu()
+    configs = [(128, True), (2048, True), (128, False)]
+    before = launch_counts()
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    card_runs = {}
+    with trace(TRACE_DIR):
+        for seg, spec in configs:
+            with _Calls() as c:
+                res = cm_parallel.cm_encode_parallel_batch(u, l_gpu, seg=seg, speculative=spec)
+                card_runs[(seg, spec)] = (tuple(t.cpu() for t in res), c.calls)
+        torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    err = {"p1": 0, "p2": 0}
+    modes, plain_ms, encoder = {}, {"p2": 0.0}, {}
+    for seg, spec in configs:
+        got, kcalls = card_runs[(seg, spec)]
+        t0 = time.perf_counter()
+        with _Calls() as c:
+            want = cm_parallel.cm_encode_parallel_batch(u_cpu, l_cpu, seg=seg, speculative=spec)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        _require(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]) and bool(want[2].all()),
+                 f"seg {seg}: lengths {got[1].tolist()} / {want[1].tolist()}, ok {got[2].tolist()}")
+        for i in range(len(rows)):
+            m = int(want[1][i])
+            _require(torch.equal(got[0][i, :m], want[0][i, :m]), f"seg {seg}, row {i} differs")
+        for name in _Calls.NAMES:
+            _require(len(kcalls[name]) == len(c.calls[name]),
+                     f"{name}: {len(kcalls[name])} calls on the card, {len(c.calls[name])} on the CPU")
+            for (ka, kres, _), (pa, pres, pms) in zip(kcalls[name], c.calls[name]):
+                for x, y in zip(ka, pa):  # the same inputs
+                    _require(torch.equal(x.cpu(), y) if isinstance(x, torch.Tensor) else x == y,
+                             f"{name}: inputs differ")
+                if name == "range_pass":  # bytes past a payload's length are not written
+                    (kout, klens), (pout, plens) = kres, pres
+                    e = _int_err(klens.cpu(), plens)
+                    for i, m in enumerate(plens.clamp(max=pout.shape[1]).tolist()):
+                        e = max(e, _int_err(kout[i, :m].cpu(), pout[i, :m]))
+                else:
+                    e = max(_int_err(x.cpu(), y) for x, y in zip(_as_tuple(kres), _as_tuple(pres)))
+                if name == "range_pass":
+                    err["p2"] = max(err["p2"], e)
+                    plain_ms["p2"] += pms
+                    continue
+                err["p1"] = max(err["p1"], e)
+                ev, rate, mode = ka[:3]
+                key = f"{mode}_rate{rate}"
+                if seg == 2048 and key not in modes:  # the card's time of one call a mode
+                    modes[key] = {"shape": list(ev.shape), "plain_ms": pms, "ms": _cuda_ms(
+                        lambda a=ka: cp.chain_windows(*a), 3)}
+        encoder[f"seg{seg}_{'speculative' if spec else 'exact'}"] = {
+            "payload_lens": want[1].tolist(), "ok": want[2].tolist(), "cpu_ms": cpu_ms,
+            "p1_calls": len(kcalls["chain_windows"])}
+    _require(err["p1"] == 0, "P1 differs from its plain version")
+    _require(err["p2"] == 0, "P2 differs from its plain version")
+    _require(len({k.split("_")[0] for k in modes}) == 3, f"modes timed {sorted(modes)}")
+
+    # P2 with a cap under the payloads: true lengths, exact bytes under it
+    (words, plens, width), _, _ = card_runs[(128, True)][1]["range_pass"][0]
+    cap = max(8, int(card_runs[(128, True)][0][1].max()) // 2)
+    k_out, k_lens = (t.cpu() for t in cp.range_pass(words, plens, cap))
+    p_out, p_lens = cm_parallel.range_pass_plain(words.cpu(), plens.cpu(), cap)
+    _require(torch.equal(k_lens, p_lens) and bool((p_lens > cap).any()), f"capped P2 {k_lens.tolist()}")
+    for i in range(len(rows)):
+        m = min(int(p_lens[i]), cap)
+        _require(torch.equal(k_out[i, :m], p_out[i, :m]), f"capped P2 row {i}")
+    p2_ms = _cuda_ms(lambda: cp.range_pass(words, plens, width), 3)
+
+    # the trace names both kernels; their summed device time in it
+    files = os.listdir(TRACE_DIR)
+    _require(len(files) == 1, f"trace files {files}")
+    with open(os.path.join(TRACE_DIR, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    traced = {}
+    for e in events:
+        for k in ("chain_windows_kernel", "range_pass_kernel"):
+            if k in str(e.get("name", "")) and str(e.get("cat", "")).lower() == "kernel":
+                d = traced.setdefault(k, {"launches": 0, "us": 0.0})
+                d["launches"] += 1
+                d["us"] += float(e.get("dur", 0))
+    _require(set(traced) == {"chain_windows_kernel", "range_pass_kernel"},
+             f"trace names {sorted(traced)}")
+    out = {
+        "phase": "parity_parallel", "card": card, "rows": len(rows), "width": n,
+        "row_lens": lens.tolist(), "tolerance": 0, "encoder": encoder,
+        "p1": {"max_abs_err": err["p1"], "modes": modes, "plain_device": "cpu"},
+        "p2": {"max_abs_err": err["p2"], "ms": p2_ms, "plain_ms": plain_ms["p2"] / len(configs),
+               "plain_device": "cpu", "cap": cap, "capped_lens": k_lens.tolist()},
+        "parity_launches": launches, "trace": {"file": files[0], "kernels": traced,
+                                               "events": len(events)},
+    }
+    emit(out)
+    return out
+
+
+P2_PREFIX = 4096  # bytes a row of P2 held against its plain version at the main shape
+
+
+def _held_to_plain(name: str, args, res) -> dict:
+    """One P1 or P2 call at the main path's shape against its plain
+    version.  P1: ``chain_windows_plain`` on the same card tensors, in
+    full.  P2: ``range_pass_plain`` on CPU copies of each row's first
+    ``P2_PREFIX`` bytes of words: the coder never carries into a byte it
+    has written, so the prefix's payload less its 4 flush bytes (all of
+    it, with its length, for a row that fits the prefix) is the start of
+    the row's payload."""
+    from bzip3_tpu_torch.ops.device import cm_parallel
+
+    if name == "chain_windows":
+        want = cm_parallel.chain_windows_plain(*args)
+        err = max(_int_err(x, y) for x, y in zip(_as_tuple(res), _as_tuple(want)))
+        return {"mode": args[2], "rate": args[1], "shape": list(args[0].shape), "max_abs_err": err}
+    words, lens, width = args
+    kout, klens = res
+    pre = lens.clamp(max=P2_PREFIX).cpu()
+    pout, plens = cm_parallel.range_pass_plain(words[:, : 8 * P2_PREFIX].cpu(), pre, width)
+    whole = (lens.cpu() <= P2_PREFIX).tolist()
+    kpre = kout[:, : int(plens.max())].cpu()
+    klens = klens.cpu()
+    err, compared = 0, 0
+    for i, m in enumerate(plens.tolist()):
+        m = m if whole[i] else m - 4
+        err = max(err, _int_err(kpre[i, :m], pout[i, :m]))
+        if whole[i]:
+            err = max(err, abs(int(klens[i]) - int(plens[i])))
+        compared += m
+    return {"rows": len(whole), "prefix_bytes": P2_PREFIX, "payload_bytes_compared": compared,
+            "max_abs_err": err}
+
+
+def _p1_work(args) -> tuple[int, int]:
+    """(bytes, operations) of one P1 launch from its C arguments: the
+    events read once, the entries read and the exits or values written;
+    a step of each event on each state (2 in a pair pass, 2^rate in a
+    map pass, 1 in an emit pass)."""
+    k, seg, s, rate, mode = args[1:6]
+    events = k * seg * s
+    states = (2, 1 << rate, 1)[mode]
+    io_bytes = (16 * k * s, 4 * k * s * (1 + (1 << rate)), 4 * k * s + 4 * events)[mode]
+    return 4 * events + io_bytes, OPS_PER_EVENT * events * states
+
+
+def phase_main_parallel(card: str, data: bytes, parity: dict, lat: dict, bs: int = 2 * MiB,
+                        blocks: int = 16) -> dict:
+    """The parallel CM encoder on the path a user selects with
+    BZ3_TPU_CM=parallel, at -b 2 (the widest wave it takes): ``blocks`` x
+    ``bs`` of text through ``compress_file`` / ``decompress_file``, P1 and
+    P2 timed launch by launch as they run.  The stream must equal the K1
+    route's on the same data, every row certify (no row coded again), and
+    the golden streams re-encode on this route at -b 1.  Then the encoder
+    against K1 by CUDA events on the blocks' post-BWT rows at [1, N] and
+    [blocks, N], each with its peak device memory a byte of input, its
+    payloads equal to K1's; the stage times of the [blocks, N] run;
+    ``torch.sort`` alone at C1's key shape; and each P1 and P2 call of
+    the [blocks, N] encode held against its plain version
+    (``_held_to_plain``).  P2's serial bound: 8 bit steps a byte of the
+    longest row at the coder chain's time a step (phase_latency)."""
+    import torch
+    from bzip3_tpu_torch import compress_file, decompress_file
+    from bzip3_tpu_torch.engines import DeviceEngine
+    from bzip3_tpu_torch.ops.device import cm_cuda, cm_parallel_cuda as cp
+    from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch
+    from bzip3_tpu_torch.pipeline import host_prepass
+    from bzip3_tpu_torch.utils.profiling import StageTimer
+
+    with _env(BZ3_TPU_CM="parallel"):
+        with _LaunchTimes("bz3t_chain_windows", "bz3t_range_pass") as lt:
+            eng, comp, out = _round_trip(card, "main_parallel", data, bs, blocks)
+        launches, enc = out["launches"], out["encode_launches"]
+        _require({k for k, v in launches.items() if v} == set(PARALLEL_PATH)
+                 and enc["cm_encode"] == 0, launches)
+        golden = {}
+        for name in GOLDEN:
+            with open(os.path.join(ROOT, "tests", "data", name), "rb") as f:
+                gold = f.read()
+            plain = io.BytesIO()
+            decompress_file(io.BytesIO(gold), plain, engine=DeviceEngine("cuda"), batch_size=8)
+            gbs = int.from_bytes(gold[5:9], "little")
+            again = io.BytesIO()
+            geng = DeviceEngine("cuda")
+            reset_launches()
+            compress_file(io.BytesIO(plain.getvalue()), again, gbs, engine=geng, batch_size=8,
+                          feof_block=False)
+            gl = launch_counts()
+            _require(again.getvalue() == gold, f"{name}: re-encode on the parallel route differs")
+            _require(gl["range_pass"] > 0 and gl["cm_encode"] == 0 and geng.reencoded_rows == 0,
+                     f"{name}: launches {gl}")
+            golden[name] = {"block_size": gbs, "identical": True, "range_pass_launches": gl["range_pass"]}
+    k1_stream = io.BytesIO()
+    compress_file(io.BytesIO(data), k1_stream, bs, engine=DeviceEngine("cuda"), batch_size=blocks)
+    _require(k1_stream.getvalue() == comp, "the parallel route's stream differs from K1's")
+
+    # P1 and P2 as the main path ran them: times, bounds from their inputs
+    p1 = lt.launches("bz3t_chain_windows")
+    p2 = lt.launches("bz3t_range_pass")
+    rows = [host_prepass(data[i * bs : (i + 1) * bs])[3] for i in range(blocks)]
+    pays = [len(p) for _, p in _payloads(comp, bs)[:blocks]]
+    _require(len(p2) == launches["range_pass"] and len(p1) == launches["chain_windows"],
+             "timed launches")
+    w1 = [_p1_work(a) for _, a in p1]
+    p1_bound = _bound(sum(b for b, _ in w1), sum(o for _, o in w1))
+    nbits = 8 * sum(map(len, rows))
+    p2_bound = _bound(4 * nbits + sum(pays) + 8 * blocks, OPS_PER_P2_BIT * nbits)
+    ns_k1 = parity["k2_k1_1MiB"]["k1_ns_per_bit"]
+    chain = lat["coder_chain"]
+    by_mode = {}
+    for ms, a in p1:
+        d = by_mode.setdefault(("pair", "map", "emit")[a[5]], {"launches": 0, "ms": 0.0})
+        d["launches"] += 1
+        d["ms"] += ms
+    out.update({
+        "golden": golden, "equal_to_k1_stream": True,
+        "p1": {"launches": len(p1), "ms": sum(ms for ms, _ in p1), "by_mode": by_mode,
+               "bound_ms": p1_bound[0], "bound_by": p1_bound[1]},
+        "p2": {"launches": len(p2), "ms": sum(ms for ms, _ in p2), "bound_ms": p2_bound[0],
+               "bound_by": p2_bound[1], "serial_bound_ms": 8 * max(map(len, rows)) * chain["ns"] * 1e-6,
+               "serial_bound_from": "phase_latency's coder chain", "chain_ns_per_bit": chain["ns"],
+               "chain_cycles_per_bit": chain["cycles"], "k1_ns_per_bit": ns_k1},
+        "relax_rounds": out["stage_calls"].get("encode/cm/p1_relax", 0),
+        "cm_stages_s": {k: v for k, v in out["stages_s"].items() if k.startswith("encode/cm")},
+        "row_lens": list(map(len, rows)), "payload_lens": pays,
+    })
+
+    # the encoder against K1 on the blocks' post-BWT rows
+    width = -(-max(map(len, rows)) // 256) * 256
+    arr, lens = _pad(rows, width)
+    l_gpu = torch.from_numpy(lens).cuda()
+    u, _ = bwt_forward_batch(torch.from_numpy(arr).cuda(), l_gpu)
+    shapes = {}
+    for k in (1, blocks):
+        uk, lk = u[:k].contiguous(), l_gpu[:k].contiguous()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (pout, plens, ok), par_ms = _timed(lambda: cp.cm_encode_parallel(uk, lk))
+        peak = torch.cuda.max_memory_allocated() - base
+        (kout, klens), k1_ms = _timed(lambda: cm_cuda.cm_encode(uk, lk))
+        _require(bool(ok.all()) and torch.equal(plens, klens), f"[{k}]: ok {ok.tolist()}")
+        inside = torch.arange(pout.shape[1], device=u.device)[None, :] < plens[:, None]
+        _require(torch.equal(torch.where(inside, pout, 0), torch.where(inside, kout, 0)),
+                 f"[{k}, {width}]: payloads differ from K1's")
+        shapes[f"{k}x{width}"] = {
+            "parallel_ms": par_ms, "k1_ms": k1_ms, "parallel_over_k1": par_ms / k1_ms,
+            "peak_bytes": peak, "peak_bytes_per_input_byte": peak / (k * width)}
+        del pout, kout
+    timer = StageTimer(enabled=True, sync=torch.cuda.synchronize)
+    _, staged_ms = _timed(lambda: cp.cm_encode_parallel(u, l_gpu, timer=timer))
+    # torch.sort alone at C1's keys: [blocks, 16 N] int64, slot << 32 |
+    # time, the slots scattered by a multiplicative hash of the time
+    t = torch.arange(16 * width, device="cuda").expand(blocks, -1)
+    keys = (((t * 2654435761) >> 7) & 0xFFFF) << 32 | t
+    sort_ms = _cuda_ms(lambda: torch.sort(keys, dim=1, stable=True), 2)
+    del keys
+    # every P1 and P2 call of the [blocks, N] encode against its plain version
+    t0 = time.perf_counter()
+    with _Calls(check=_held_to_plain) as c:
+        cp.cm_encode_parallel(u, l_gpu)
+    held = c.calls
+    held_s = time.perf_counter() - t0
+    _require(len(held["chain_windows"]) == launches["chain_windows"]
+             and len(held["range_pass"]) == 1, f"held calls {held}")
+    _require({h["mode"] for h in held["chain_windows"]} == {"pair", "map", "emit"}, held)
+    p1_err = max(h["max_abs_err"] for h in held["chain_windows"])
+    p2_err = held["range_pass"][0]["max_abs_err"]
+    _require(p1_err == 0, f"P1 at [{blocks}, {width}] differs from its plain version: {held}")
+    _require(p2_err == 0, f"P2 at [{blocks}, {width}] differs from its plain version: {held}")
+    out["p1"]["max_abs_err"], out["p2"]["max_abs_err"] = p1_err, p2_err
+    out["held_to_plain"] = {"p1_passes": held["chain_windows"], "p2": held["range_pass"][0],
+                            "plain_device": {"p1": "cuda", "p2": "cpu"}, "tolerance": 0,
+                            "s": held_s}
+    out.update({"shapes": shapes, "timing": "CUDA events around each call",
+                "staged_ms": staged_ms,
+                "staged": {k: round(v * 1e3, 3) for k, v in timer.totals.items()},
+                "staged_calls": dict(timer.counts),
+                "torch_sort_c1_keys_ms": sort_ms, "group_bytes": cp.GROUP_BYTES})
+    emit(out)
+    return out
+
+
 SURFACE_DIR = os.path.join(ROOT, "_build", "surface")
 
 
@@ -1567,14 +1987,49 @@ def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict
     return rows
 
 
+def _parallel_rows(ppar: dict, mpar: dict, resources: dict) -> list[dict]:
+    """P1 and P2: launches, times and bounds from main_parallel's own
+    launches (all of P1's passes summed), errors the larger of
+    parity_parallel's and main_parallel's (at the main shape), plain
+    times from parity_parallel (P1's: one pass a mode at seg 2048)."""
+    rows = []
+    for kid, fn, src_line in (
+        ("P1", "chain_windows_kernel", "bzip3_tpu/ops/device/cm_parallel.py:137"),
+        ("P2", "range_pass_kernel", "bzip3_tpu/ops/device/cm_parallel.py:349"),
+    ):
+        k, m = kid.lower(), mpar[kid.lower()]
+        par = ppar[k]
+        row = {
+            "name": f"{kid} {fn}", "route": "cuda",
+            "source": "bzip3_tpu_torch/csrc/cm_parallel_kernels.cu", "replaces": src_line,
+            "status": STATUS[kid], "launches": m["launches"],
+            "max_abs_err": max(par["max_abs_err"], m["max_abs_err"]),
+            "ms": m["ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "shape": [mpar["blocks"], max(mpar["row_lens"])],
+            "plain_device": "cpu", "registers": resources.get(fn, {}).get("registers"),
+        }
+        if kid == "P1":
+            row.update({"plain_ms": sum(v["plain_ms"] for v in par["modes"].values()),
+                        "kernel_ms_at_plain_shape": sum(v["ms"] for v in par["modes"].values()),
+                        "plain_shape": "one pass a mode and rate at seg 2048 (parity_parallel)",
+                        "by_mode": m["by_mode"]})
+        else:
+            row.update({"plain_ms": par["plain_ms"], "kernel_ms_at_plain_shape": par["ms"],
+                        "plain_shape": [ppar["rows"], ppar["width"]],
+                        "serial_bound_ms": m["serial_bound_ms"],
+                        "ns_per_bit_step": m["ms"] * 1e6 / (8 * max(mpar["row_lens"]))})
+        rows.append(row)
+    return rows
+
+
 def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: dict,
                  pshapes: dict, resume: dict, b32: dict, over: dict, resources: dict,
-                 surface: dict) -> dict:
+                 surface: dict, ppar: dict, mpar: dict) -> dict:
     """The kernels of the main paths: launches from the main phases
     (K1/K2 from the default path, K4-K6 from the device prepass chain,
-    K3a-K3c from main_b32 and main_oversize), times at their rows, plain
-    times from the parity phases (the plain CM coder takes ~0.1 ms a bit
-    step: hours at 16 MiB)."""
+    K3a-K3c from main_b32 and main_oversize, P1/P2 from main_parallel),
+    times at their rows, plain times from the parity phases (the plain CM
+    coder takes ~0.1 ms a bit step: hours at 16 MiB)."""
     ins, pays = shapes["row_lens"], shapes["payload_lens"]
     rows = []
     for kid, key, fn, src_line in (
@@ -1662,6 +2117,7 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
         if kid == "K4":
             row["ms_one_row"] = one["k4_one_row_queued_ms"]
             row["ms_one_row_idle_card"] = one["k4_one_row_ms"]
+    rows += _parallel_rows(ppar, mpar, resources)
     return {"kernels": rows}
 
 
@@ -1700,8 +2156,10 @@ def main() -> int:
     log = pdata[4 * bs : 7 * bs]  # 48 MiB of log lines
     b32 = phase_main_b32(smi, data[: 2 * bs] + log[: 2 * bs])
     over = phase_main_oversize(smi, data[: 6 * bs] + log, b32)
+    ppar = phase_parity_parallel(smi)
+    mpar = phase_main_parallel(smi, data[: 16 * 2 * MiB], parity, lat)
     emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over,
-                      built["resources"], surface))
+                      built["resources"], surface, ppar, mpar))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

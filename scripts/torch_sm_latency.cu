@@ -4,13 +4,16 @@
 // for the LZP kernels (built and run by chip_smoke.py): the round trip of
 // a load from device memory (`sm_chase`, a pointer chase over a table of
 // the caller's size, through L2 and past L1) and a warp's dependent
-// __match_any_sync (`sm_match_any`).
+// __match_any_sync (`sm_match_any`); and for P2, the range coder's bit
+// step alone (`sm_coder_chain`, built and run by chip_smoke.py).
 //
 // Each chain runs kReps dependent steps unrolled; out[k] gets the cycles
 // of chain k over kReps, out[kChains] a value that keeps the chains live.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "../bzip3_tpu_torch/csrc/cm_coder.cuh"  // split_hi, renorm_shift, renorm
 
 namespace {
 
@@ -97,7 +100,39 @@ __global__ void match_kernel(long long *out, uint32_t seed) {
     if (lane == 0) out[2] = v + w;
 }
 
+// The range coder's dependent chain of a bit step, as P2's loop runs it
+// (cm_parallel_kernels.cu): the split, the select on the bit, the renorm
+// count and shifts, over `steps` bits (a multiple of 64).  The split
+// factors and bits come from a hash of the step's index, off the chain,
+// and nothing is stored, so a step takes the chain's latency alone:
+// out[0] the clock64 cycles, out[1] keeps the chain live.
+__global__ void coder_chain_kernel(int64_t steps, uint32_t seed, long long *out) {
+    uint32_t low = 0, high = 0xFFFFFFFFu, shifted = 0;
+    const long long t0 = clock64();
+    for (int64_t k = 0; k < steps; k += 64) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+            const uint32_t w = ((uint32_t)k + i) * 0x9E3779B1u + seed;
+            const uint32_t step = split_hi(low, high, (w & 0x3FFFFu) << 14);
+            if (w >> 31)
+                high = low + step;
+            else
+                low = low + step + 1;
+            const uint32_t sh = renorm_shift(low, high);
+            shifted += sh;
+            renorm(low, high, sh);
+        }
+    }
+    out[0] = clock64() - t0;
+    out[1] = (long long)(low ^ high) + shifted;
+}
+
 }  // namespace
+
+extern "C" int sm_coder_chain(int64_t steps, uint32_t seed, long long *out, void *stream) {
+    coder_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(steps, seed, out);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int sm_match_any(long long *out, uint32_t seed, void *stream) {
     match_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(out, seed);

@@ -94,7 +94,7 @@ def emu(tmp_path_factory):
     so = d / "libcm_emu.so"
     res = subprocess.run(
         [cxx, "-std=c++17", "-O2", "-pthread", "-fPIC", "-shared", "-w",
-         "-I", os.path.join(ROOT, "tests"), str(cpp), "-o", str(so)],
+         "-I", os.path.join(ROOT, "tests"), "-I", os.path.dirname(SRC), str(cpp), "-o", str(so)],
         capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
