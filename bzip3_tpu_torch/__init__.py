@@ -6,6 +6,10 @@ The PyTorch/CUDA port of ``bzip3_tpu``.  Per block:
 
 mirrored in reverse for decode with a CRC32 check.  Streams are
 byte-identical to the reference bzip3 1.5.2 and to ``bzip3_tpu``.
+Blocks are independent, which is the unit of data parallelism: each
+wave's blocks split over the cards of a process, and blocks stripe over
+the processes of a ``torch.distributed`` job (``bzip3_tpu_torch.parallel``;
+the ``sharded`` engine).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a GPU the default raises.

@@ -8,12 +8,13 @@ The flags follow the reference CLI (src/main.c:553-585): -e/-z encode,
 -d decode, -t test, -r recover, -c stdout, -f force, --rm, -k keep, -v
 verbose, -V version, -h help, -b block MiB, -B batch (every file in
 turn), -j jobs.  ``--engine`` picks the block engine (``engines.py``):
-``device`` (the default), ``oracle``, ``native``, ``hybrid`` or
-``auto``; the device and hybrid engines run on the card unless
-``--device cpu`` is given.  File naming follows the reference: encode
-appends ``.bz3`` (src/main.c:747-770), decode and recover require it
-unless writing to standard output (src/main.c:783), and compressed data
-is never written to a terminal (src/main.c:161-165).
+``device`` (the default), ``sharded`` (every card), ``oracle``,
+``native``, ``hybrid`` or ``auto``; the device, sharded and hybrid
+engines run on the card unless ``--device cpu`` is given.  File naming
+follows the reference: encode appends ``.bz3`` (src/main.c:747-770),
+decode and recover require it unless writing to standard output
+(src/main.c:783), and compressed data is never written to a terminal
+(src/main.c:161-165).
 """
 
 from __future__ import annotations
@@ -49,8 +50,8 @@ USAGE = (
     "  -b N, --block=N   set block size in MiB {16}\n"
     "  -B, --batch       process all files specified as inputs\n"
     "  -j N, --jobs=N    set the amount of parallel threads\n"
-    "  --engine=E        block engine: device|oracle|native|hybrid|auto {device}\n"
-    "  --device=D        where the device engine runs: cuda|cpu {cuda}\n"
+    "  --engine=E        block engine: device|sharded|oracle|native|hybrid|auto {device}\n"
+    "  --device=D        where the device engines run: cuda|cpu {cuda}\n"
 )
 
 

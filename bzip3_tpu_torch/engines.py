@@ -16,11 +16,12 @@ mode decodes a damaged block through.
   (``ops/native``).
 - ``device``: the batched block pipeline (``pipeline.py``) on ``device``:
   ``"cuda"`` by default, ``"cpu"`` only when the caller asks for it.
+- ``sharded``: the device pipeline with each wave's rows split over every
+  card (``parallel/sharding.py``); with ``device="cpu"`` one CPU share.
 - ``hybrid``: the native pool and the device pipeline splitting one
   batch and working at once.
 - ``auto``: native if its library builds, else oracle.
 
-``sharded`` (the pipeline over several cards) is not in the port yet.
 All engines produce byte-identical BZ3v1 streams.
 """
 
@@ -35,10 +36,11 @@ from .models.block_codec import decode_block, encode_block
 from .ops import native
 from .ops.build import BuildError
 from .ops.device.stages import block_stages
+from .parallel.sharding import make_mesh, sharded_pipeline
 from .pipeline import DevicePipeline, resolve_device
-from .utils.profiling import StageTimer
+from .utils.profiling import StageTimer, device_sync
 
-NAMES = ("device", "oracle", "native", "hybrid", "auto")
+NAMES = ("device", "sharded", "oracle", "native", "hybrid", "auto")
 
 
 class OracleEngine:
@@ -75,7 +77,13 @@ class DeviceEngine:
     """The block pipeline on ``device``.  ``device_prepass``, ``host_crc``
     and ``device_crc_verify`` pass through to the pipelines
     (``pipeline.py``); None reads the JAX package's variables.  ``profile``
-    turns the stage timer (``timer``) on; None reads ``BZ3_TPU_PROFILE``."""
+    turns the stage timer (``timer``) on; None reads ``BZ3_TPU_PROFILE``.
+
+    ``sharded`` runs ``sharded_pipeline`` over ``mesh`` (``make_mesh``'s
+    devices): by default every card, or with ``device="cpu"`` one CPU
+    share; a ``mesh`` given implies ``sharded``.  There the host passes
+    always run, so ``device_prepass`` does not apply (``sharded_pipeline``
+    says what the CRC switches do)."""
 
     name = "device"
 
@@ -86,10 +94,18 @@ class DeviceEngine:
         device_prepass: bool | None = None,
         host_crc: bool | None = None,
         device_crc_verify: bool | None = None,
+        sharded: bool = False,
+        mesh=None,
     ):
         self.device = resolve_device(device)
-        sync = torch.cuda.synchronize if self.device.type == "cuda" else None
-        self.timer = StageTimer(enabled=profile, sync=sync)
+        self.mesh = None
+        if sharded or mesh is not None:
+            if mesh is None and self.device.type == "cpu":
+                mesh = [self.device]
+            self.mesh = make_mesh(devices=mesh)
+            self.device = self.mesh[0]
+            self.name = "sharded"
+        self.timer = StageTimer(enabled=profile, sync=device_sync(self.mesh or [self.device]))
         self._switches = {
             "device_prepass": device_prepass,
             "host_crc": host_crc,
@@ -100,10 +116,24 @@ class DeviceEngine:
 
     def _pipe(self, block_size: int) -> DevicePipeline:
         if block_size not in self._pipes:
-            self._pipes[block_size] = DevicePipeline(
-                block_size, self.device, timer=self.timer, **self._switches
-            )
+            if self.mesh is None:
+                pipe = DevicePipeline(block_size, self.device, timer=self.timer, **self._switches)
+            else:
+                pipe = sharded_pipeline(block_size, self.mesh, timer=self.timer,
+                                        host_crc=self._switches["host_crc"],
+                                        device_crc_verify=self._switches["device_crc_verify"])
+            self._pipes[block_size] = pipe
         return self._pipes[block_size]
+
+    def share_ms(self) -> list[dict[str, float]]:
+        """A sharded engine's milliseconds of each share on its stream by
+        stage (``ShardedCores.share_ms``), over its pipelines."""
+        out = [{} for _ in self.mesh or ()]
+        for pipe in self._pipes.values():
+            for acc, ms in zip(out, pipe.shards.share_ms()):
+                for k, v in ms.items():
+                    acc[k] = acc.get(k, 0.0) + v
+        return out
 
     @property
     def reencoded_rows(self) -> int:
@@ -164,7 +194,7 @@ class HybridEngine:
 
 def get_engine(name: str = "auto", n_threads: int = 0, device="cuda"):
     """The engine called ``name`` (``NAMES``); ``device`` places the
-    device and hybrid engines."""
+    device, sharded and hybrid engines."""
     if name == "auto":
         try:
             return NativeEngine(n_threads)
@@ -176,10 +206,8 @@ def get_engine(name: str = "auto", n_threads: int = 0, device="cuda"):
         return NativeEngine(n_threads)
     if name == "device":
         return DeviceEngine(device)
+    if name == "sharded":
+        return DeviceEngine(device, sharded=True)
     if name == "hybrid":
         return HybridEngine(n_threads, device=device)
-    if name == "sharded":
-        raise ValueError(
-            "engine 'sharded' needs the multi-GPU slice of the port, not ported yet"
-        )
     raise ValueError(f"unknown engine {name!r}")

@@ -27,7 +27,7 @@ import os
 import torch
 
 from . import cm
-from .launch import I32, I64, P, check, entry, raise_on, route, rows16
+from .launch import I32, I64, P, check, count, entry, raise_on, reset, route, rows16
 
 # Kernel launches since the last reset, by kernel.
 LAUNCHES = {
@@ -40,8 +40,7 @@ LAUNCHES = {
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset(LAUNCHES)
 
 
 def _resumable(steps: int, chunk_steps: int) -> bool:
@@ -114,7 +113,7 @@ def cm_encode(
             out_lens.data_ptr(), k, stream,
         )
     raise_on(rc, "cm_encode")
-    LAUNCHES["cm_encode"] += 1
+    count(LAUNCHES, "cm_encode")
     return out, out_lens
 
 
@@ -148,7 +147,7 @@ def cm_encode_resumable(
                 out_lens.data_ptr(), state.data_ptr(), s, e, k, stream,
             )
             raise_on(rc, "cm_encode_resume")
-            LAUNCHES["cm_encode_resume"] += 1
+            count(LAUNCHES, "cm_encode_resume")
     return out, out_lens
 
 
@@ -184,7 +183,7 @@ def cm_decode(
             out_lens.data_ptr(), out.data_ptr(), out_width, k, stream,
         )
     raise_on(rc, "cm_decode")
-    LAUNCHES["cm_decode"] += 1
+    count(LAUNCHES, "cm_decode")
     return out
 
 
@@ -208,7 +207,7 @@ def _decode_launches(payload, in_lens, out_lens, out_width: int, chunk_steps, re
                 state.data_ptr(), s, e, k, torch.cuda.current_stream().cuda_stream,
             )
         raise_on(rc, key)
-        LAUNCHES[key] += 1
+        count(LAUNCHES, key)
         yield s, out
 
 

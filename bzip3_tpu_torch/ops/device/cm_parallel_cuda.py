@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import cm_parallel
-from .launch import I32, I64, P, check, entry, raise_on, route
+from .launch import I32, I64, P, check, count, entry, raise_on, reset, route
 
 # Kernel launches since the last reset, by kernel.
 LAUNCHES = {"chain_windows": 0, "range_pass": 0}
@@ -42,8 +42,7 @@ GROUP_BYTES = 32 << 20
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset(LAUNCHES)
 
 
 def chain_windows(ev: torch.Tensor, rate: int, mode: str, in0: torch.Tensor,
@@ -85,7 +84,7 @@ def chain_windows(ev: torch.Tensor, rate: int, mode: str, in0: torch.Tensor,
             torch.cuda.current_stream().cuda_stream,
         )
     raise_on(rc, "chain_windows")
-    LAUNCHES["chain_windows"] += 1
+    count(LAUNCHES, "chain_windows")
     return outs if mode == "pair" else outs[0]
 
 
@@ -115,7 +114,7 @@ def range_pass(words: torch.Tensor, lengths: torch.Tensor, out_width: int):
             out_lens.data_ptr(), k, torch.cuda.current_stream().cuda_stream,
         )
     raise_on(rc, "range_pass")
-    LAUNCHES["range_pass"] += 1
+    count(LAUNCHES, "range_pass")
     return out, out_lens
 
 

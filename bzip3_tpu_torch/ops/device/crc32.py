@@ -118,7 +118,11 @@ def _lane_combine_bank(lanes: int, seg: int, device="cpu") -> torch.Tensor:
 def _bank(key: tuple, make, device) -> torch.Tensor:
     full = (*key, str(device))
     if full not in _BANKS:
-        _BANKS[full] = make()
+        bank = make()
+        if isinstance(bank, torch.Tensor) and bank.is_cuda:
+            # complete before another stream of the card reads it
+            torch.cuda.current_stream(bank.device).synchronize()
+        _BANKS[full] = bank
     return _BANKS[full]
 
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from . import crc32, gf2
-from .launch import I32, I64, P, check, entry, raise_on, route, rows16
+from .launch import I32, I64, P, check, count, entry, raise_on, reset, route, rows16
 
 # Kernel launches since the last reset, by kernel.
 LAUNCHES = {"crc_lanes": 0}
@@ -28,14 +28,14 @@ _SMS: dict = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset(LAUNCHES)
 
 
 def _pow2(device) -> torch.Tensor:
     if device not in _POW2:
-        bank = gf2.shift_pow2_bank(32).view(np.int32)
-        _POW2[device] = torch.from_numpy(bank.copy()).to(device)
+        bank = torch.from_numpy(gf2.shift_pow2_bank(32).view(np.int32).copy()).to(device)
+        torch.cuda.current_stream(device).synchronize()  # before another stream reads it
+        _POW2[device] = bank
     return _POW2[device]
 
 
@@ -81,7 +81,7 @@ def crc_lane_scan(rows: torch.Tensor, lengths: torch.Tensor, lanes: int) -> torc
                 torch.cuda.current_stream().cuda_stream,
             )
         raise_on(rc, "crc_lanes")
-        LAUNCHES["crc_lanes"] += 1
+        count(LAUNCHES, "crc_lanes")
     return out.long() & 0xFFFFFFFF
 
 

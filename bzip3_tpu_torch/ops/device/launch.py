@@ -4,13 +4,16 @@ points and the launch error check.
 
 A wrapper checks its tensors, takes the plain PyTorch version when they
 lie on the CPU, and otherwise launches its kernel on the current
-stream through ``entry`` and raises through ``raise_on`` if the launch
-was refused.  Nothing here falls back.
+stream through ``entry``, raises through ``raise_on`` if the launch
+was refused and adds the launch to its count through ``count``, which
+stays exact when several threads launch at once (the shares of a
+sharded pipeline).  Nothing here falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -21,6 +24,7 @@ I32 = ctypes.c_int32
 I64 = ctypes.c_int64
 
 _entries: dict[str, ctypes._CFuncPtr] = {}
+_counts_lock = threading.Lock()
 
 
 def entry(name: str, argtypes: list, restype=ctypes.c_int) -> ctypes._CFuncPtr:
@@ -68,3 +72,16 @@ def raise_on(rc: int, what: str) -> None:
     if rc != 0:
         err = entry("bz3t_error_string", [ctypes.c_int], ctypes.c_char_p)
         raise RuntimeError(f"{what} launch failed: {err(rc).decode()} (cudaError {rc})")
+
+
+def count(launches: dict[str, int], name: str) -> None:
+    """One more launch of kernel ``name`` in a wrapper's ``launches``."""
+    with _counts_lock:
+        launches[name] += 1
+
+
+def reset(launches: dict[str, int]) -> None:
+    """Every count of a wrapper's ``launches`` to 0."""
+    with _counts_lock:
+        for k in launches:
+            launches[k] = 0

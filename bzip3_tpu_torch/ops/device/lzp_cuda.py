@@ -25,15 +25,14 @@ from __future__ import annotations
 import torch
 
 from . import lzp
-from .launch import I32, I64, P, check, entry, raise_on, route
+from .launch import I32, I64, P, check, count, entry, raise_on, reset, route
 
 # Kernel launches since the last reset, by kernel.
 LAUNCHES = {"lzp_encode": 0, "lzp_decode": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset(LAUNCHES)
 
 
 STATS = 5  # counters a row
@@ -79,7 +78,7 @@ def lzp_encode(data: torch.Tensor, lengths: torch.Tensor, stats: torch.Tensor | 
                 torch.cuda.current_stream().cuda_stream,
             )
         raise_on(rc, "lzp_encode")
-        LAUNCHES["lzp_encode"] += 1
+        count(LAUNCHES, "lzp_encode")
     return out, out_lens
 
 
@@ -113,5 +112,5 @@ def lzp_decode(data: torch.Tensor, in_lens: torch.Tensor, max_out: int,
                 torch.cuda.current_stream().cuda_stream,
             )
         raise_on(rc, "lzp_decode")
-        LAUNCHES["lzp_decode"] += 1
+        count(LAUNCHES, "lzp_decode")
     return out, out_lens

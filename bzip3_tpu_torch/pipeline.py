@@ -30,8 +30,12 @@ same path in both packages.
 Blocks under 64 bytes are literals and never reach the device (their
 CRC is computed or checked on the host, except under the device verify).
 The others run in waves: a wave is every remaining block up to
-``WAVE_BYTES`` of device rows, padded to the wave's longest row rounded
-up to 256 bytes.  A row wider than 16 Mi steps (``-b 17`` and up) is
+``wave_bytes(mesh)`` of device rows, padded to the wave's longest row
+rounded up to 256 bytes.  A wave's device work runs in its cores,
+``encode_core_fn`` and ``decode_core_fn``, which a sharded pipeline
+(``parallel/sharding.py``) replaces, as the JAX package's
+``DevicePipeline`` lets it; the framing, the checks and the CRCs stay
+here, in block order.  A row wider than 16 Mi steps (``-b 17`` and up) is
 CM-coded in launches of 16 Mi steps with its state carried between them
 (K3a/K3b, ``cm_cuda``), as the JAX package does.
 
@@ -73,10 +77,10 @@ from .utils.profiling import StageTimer
 _U32 = struct.Struct("<I")
 _S32 = struct.Struct("<i")
 
-# Device bytes of rows per wave.  The forward BWT's sort rounds hold
-# int64 arrays of the wave's shape: 8 rows of 16 MiB peaked at 14.4 GB
-# on an H100 (chip_smoke.py), so 256 MiB of rows needs ~29 GB of the
-# card's 80 GB.
+# Device bytes of rows per wave on one card.  The forward BWT's sort
+# rounds hold int64 arrays of the wave's shape: 8 rows of 16 MiB peaked
+# at 14.4 GB on an H100 (chip_smoke.py), so 256 MiB of rows needs ~29 GB
+# of the card's 80 GB.
 WAVE_BYTES = 256 << 20
 
 # Widest wave (padded row width) the parallel CM encoder takes under
@@ -97,6 +101,27 @@ def cm_impl() -> str:
     The bytes are the same on every route."""
     mode = os.environ.get("BZ3_TPU_CM", "auto")
     return "k1" if mode in ("auto", "pallas", "scan") else "parallel"
+
+
+def wave_bytes(mesh) -> int:
+    """Device bytes of rows a wave may hold on ``mesh``, a list of
+    devices: ``WAVE_BYTES`` (one card's budget) for each distinct device.
+    Shares on one device split its budget.  No output byte depends on it
+    (the JAX package's ``wave_multiple`` for its mesh)."""
+    return WAVE_BYTES * len({torch.device(d) for d in mesh})
+
+
+def run_core(steps, timer: StageTimer):
+    """Run a core to its end and return its result.  A core is a
+    generator that yields the name of each stage before it runs it; each
+    stage runs under ``timer``."""
+    name = next(steps)
+    while True:
+        with timer.stage(name):
+            try:
+                name = next(steps)
+            except StopIteration as done:
+                return done.value
 
 
 def _round_up(n: int, m: int) -> int:
@@ -132,12 +157,13 @@ def host_prepass(data: bytes):
     return model, lzp_size, rle_size, cur
 
 
-def _waves(items: list, size_of) -> list[list]:
-    """Consecutive groups whose rows fit WAVE_BYTES at their padded width."""
+def _waves(items: list, size_of, budget: int) -> list[list]:
+    """Consecutive groups whose rows fit ``budget`` bytes at their padded
+    width."""
     out, cur, widest = [], [], 0
     for it in items:
         w = max(widest, _round_up(max(1, size_of(it)), 256))
-        if cur and w * (len(cur) + 1) > WAVE_BYTES:
+        if cur and w * (len(cur) + 1) > budget:
             out.append(cur)
             cur, w = [], _round_up(max(1, size_of(it)), 256)
         cur.append(it)
@@ -168,6 +194,13 @@ def _pad(rows: list[bytes], width: int):
     return torch.from_numpy(arr), torch.from_numpy(lens)
 
 
+def _upload(rows: list[bytes], device):
+    """Rows zero-padded to the longest rounded up to 256, and their int32
+    lengths, on ``device``."""
+    arr, lens = _pad(rows, _round_up(max(1, max(map(len, rows))), 256))
+    return arr.to(device), lens.to(device)
+
+
 def _to_host(cols: dict) -> dict[str, list]:
     """Per-row columns as lists: tensors come down in one stacked copy,
     lists pass through."""
@@ -188,6 +221,14 @@ class DevicePipeline:
     ``BZ3_TPU_DEVICE_CRC_VERIFY`` (default 0).  ``oversize`` is set from
     the block size as in the JAX package (pipeline.py:472-481), with "the
     card" for its TPU; the three switches do not apply to it.
+
+    ``mesh`` (the devices a wave's rows spread over, sizing its waves
+    through ``wave_bytes``) is ``[device]``; a sharded pipeline sets it
+    with its cores.  ``encode_core_fn(rows, raws)`` codes a wave's rows
+    after the host pre-pass (and K4's CRCs of ``raws``, the blocks as
+    given, unless None) and ``decode_core_fn(payloads, sizes, indices)``
+    gives back each row's bytes before the host post-pass; both run
+    ``encode_steps`` / ``decode_steps`` on ``device``.
     """
 
     def __init__(
@@ -219,12 +260,15 @@ class DevicePipeline:
         # Rows whose CM payload overflowed the wave's output width and
         # were encoded a second time at their true length.
         self.reencoded_rows = 0
+        self.mesh = [self.device]
+        self.encode_core_fn = self.encode_core
+        self.decode_core_fn = self.decode_core
 
-    def _upload(self, rows: list[bytes]):
-        """Rows zero-padded to the longest rounded up to 256, and their
-        int32 lengths, on the device."""
-        arr, lens = _pad(rows, _round_up(max(1, max(map(len, rows))), 256))
-        return arr.to(self.device), lens.to(self.device)
+    def encode_core(self, rows: list[bytes], raws: list[bytes] | None) -> dict:
+        return run_core(self.encode_steps(rows, raws, self.device, self.timer), self.timer)
+
+    def decode_core(self, payloads: list[bytes], sizes: list[int], indices: list[int]):
+        return run_core(self.decode_steps(payloads, sizes, indices, self.device), self.timer)
 
     # -- encode ---------------------------------------------------------
 
@@ -243,8 +287,9 @@ class DevicePipeline:
                 out[i] = _U32.pack(host.crc32(data)) + _S32.pack(-1) + data
             else:
                 rows.append((i, data))
+        budget = wave_bytes(self.mesh)
         if self.device_prepass:
-            for wave in _waves(rows, lambda r: len(r[1])):
+            for wave in _waves(rows, lambda r: len(r[1]), budget):
                 self._encode_wave_device(wave, out)
             return out
         with t.stage("encode/host_prepass"):
@@ -253,23 +298,33 @@ class DevicePipeline:
                 (i, host.crc32(data) if self.host_crc else None, *host_prepass(data), data)
                 for i, data in rows
             ]
-        for wave in _waves(rows, lambda r: len(r[5])):
+        for wave in _waves(rows, lambda r: len(r[5]), budget):
             self._encode_wave(wave, out)
         return out
 
     def _encode_wave(self, wave: list, out: list[bytes]) -> None:
-        """Host-prepass rows: BWT and CM on the device."""
-        t = self.timer
-        with t.stage("encode/h2d"):
-            cur, lens = self._upload([r[5] for r in wave])
+        """Host-prepass rows through the encode core, then their blocks."""
+        res = self.encode_core_fn([r[5] for r in wave],
+                                  None if self.host_crc else [r[6] for r in wave])
         if self.host_crc:
-            crc = [r[1] for r in wave]
-        else:
-            with t.stage("encode/crc"):
-                crc = crc32_cuda.crc32_batch(*self._upload([r[6] for r in wave]))
-        meta = {"crc": crc, "model": [r[2] for r in wave], "lzp": [r[3] for r in wave],
-                "rle": [r[4] for r in wave]}
-        self._code_wave([r[0] for r in wave], cur, lens, meta, out)
+            res["crc"] = [r[1] for r in wave]
+        res.update(model=[r[2] for r in wave], lzp=[r[3] for r in wave],
+                   rle=[r[4] for r in wave])
+        self._assemble([r[0] for r in wave], res, out)
+
+    def encode_steps(self, rows: list[bytes], raws: list[bytes] | None, device,
+                     timer: StageTimer):
+        """The encode core on ``device`` (a generator for ``run_core``):
+        the rows up, K4's CRCs of ``raws`` unless None, then
+        ``_code_rows``.  ``timer`` times the parallel CM encoder's own
+        stages."""
+        yield "encode/h2d"
+        cur, lens = _upload(rows, device)
+        meta = {}
+        if raws is not None:
+            yield "encode/crc"
+            meta["crc"] = crc32_cuda.crc32_batch(*_upload(raws, device))
+        return (yield from self._code_rows(cur, lens, meta, timer))
 
     def _encode_wave_device(self, wave: list, out: list[bytes]) -> None:
         """Raw rows: CRC, RLE and LZP on the device too (the JAX package's
@@ -277,7 +332,7 @@ class DevicePipeline:
         is kept only where it shrinks the row (src/libbz3.c:609-621)."""
         t = self.timer
         with t.stage("encode/h2d"):
-            orig, orig_lens = self._upload([data for _, data in wave])
+            orig, orig_lens = _upload([data for _, data in wave], self.device)
         n = orig.shape[1]
         with t.stage("encode/crc"):
             crc = crc32_cuda.crc32_batch(orig, orig_lens)
@@ -297,43 +352,51 @@ class DevicePipeline:
             cur = cur[:, : _round_up(max(1, int(cur_lens.max())), 256)].contiguous()
         meta = {"crc": crc, "model": use_lzp.int() * 2 + use_rle.int() * 4, "lzp": l_lens,
                 "rle": r_lens}
-        self._code_wave([i for i, _ in wave], cur, cur_lens, meta, out)
+        self._assemble([i for i, _ in wave], run_core(self._code_rows(cur, cur_lens, meta, t), t),
+                       out)
 
-    def _code_wave(self, idxs: list[int], cur, lens, meta: dict, out: list[bytes]) -> None:
-        """BWT and CM of the wave's device rows, then the blocks' bytes.
-        ``meta`` holds per-row crc, model, lzp and rle sizes, as lists
-        or device tensors."""
-        t = self.timer
-        with t.stage("encode/bwt"):
-            u, idx = bwt_forward_batch(cur, lens)
-        with t.stage("encode/cm"):
-            if cm_impl() == "parallel" and cur.shape[1] <= CM_PARALLEL_MAX_N:
-                payload, plens, ok = cm_parallel_cuda.cm_encode_parallel(u, lens, timer=t)
-            else:
-                payload, plens = cm_cuda.cm_encode(u, lens)
-                ok = plens <= payload.shape[1]
-        with t.stage("encode/d2h"):
-            cols = _to_host({"idx": idx, "plens": plens, "ok": ok, **meta})
-            w = payload.shape[1]
-            pay = payload[:, : min(max(cols["plens"]), w)].cpu().numpy()
-        with t.stage("encode/assemble"):
+    def _code_rows(self, cur, lens, meta: dict, timer: StageTimer):
+        """BWT and CM of rows on their device, the ok rule, and the
+        download (a generator for ``run_core``).  Returns the per-row
+        columns idx, plens, ok, ``meta``'s (device tensors come down with
+        idx in one copy) and body (the CM payload bytes), and reencoded,
+        the rows coded again."""
+        yield "encode/bwt"
+        u, idx = bwt_forward_batch(cur, lens)
+        yield "encode/cm"
+        if cm_impl() == "parallel" and cur.shape[1] <= CM_PARALLEL_MAX_N:
+            payload, plens, ok = cm_parallel_cuda.cm_encode_parallel(u, lens, timer=timer)
+        else:
+            payload, plens = cm_cuda.cm_encode(u, lens)
+            ok = plens <= payload.shape[1]
+        yield "encode/d2h"
+        cols = _to_host({"idx": idx, "plens": plens, "ok": ok, **meta})
+        w = payload.shape[1]
+        pay = payload[:, : min(max(cols["plens"]), w)].cpu().numpy()
+        cols["body"], cols["reencoded"] = [], 0
+        for j, plen in enumerate(cols["plens"]):
+            if cols["ok"][j]:
+                cols["body"].append(pay[j, :plen].tobytes())
+                continue
+            # A payload past the buffer (K1 reports its true length), or
+            # a row the parallel encoder did not certify: K1 codes the
+            # row again, with room for all of it; never emitted from the
+            # first output.
+            cols["reencoded"] += 1
+            width = max(plen, w)
+            p, pl = cm_cuda.cm_encode(u[j : j + 1], lens[j : j + 1], width)
+            if int(pl[0]) > width:  # an uncertified row's length was wrong
+                p, pl = cm_cuda.cm_encode(u[j : j + 1], lens[j : j + 1], int(pl[0]))
+            cols["body"].append(p[0, : int(pl[0])].cpu().numpy().tobytes())
+        return cols
+
+    def _assemble(self, idxs: list[int], res: dict, out: list[bytes]) -> None:
+        """The blocks' bytes from an encode core's columns, in block order."""
+        self.reencoded_rows += res["reencoded"]
+        with self.timer.stage("encode/assemble"):
             for j, i in enumerate(idxs):
-                plen = cols["plens"][j]
-                if cols["ok"][j]:
-                    body = pay[j, :plen].tobytes()
-                else:
-                    # A payload past the buffer (K1 reports its true
-                    # length), or a row the parallel encoder did not
-                    # certify: K1 codes the row again, with room for all
-                    # of it; never emitted from the first output.
-                    self.reencoded_rows += 1
-                    width = max(plen, w)
-                    p, pl = cm_cuda.cm_encode(u[j : j + 1], lens[j : j + 1], width)
-                    if int(pl[0]) > width:  # an uncertified row's length was wrong
-                        p, pl = cm_cuda.cm_encode(u[j : j + 1], lens[j : j + 1], int(pl[0]))
-                    body = p[0, : int(pl[0])].cpu().numpy().tobytes()
-                out[i] = _block_bytes(cols["crc"][j], cols["idx"][j], cols["model"][j],
-                                      cols["lzp"][j], cols["rle"][j], body)
+                out[i] = _block_bytes(res["crc"][j], res["idx"][j], res["model"][j],
+                                      res["lzp"][j], res["rle"][j], res["body"][j])
 
     # -- decode ---------------------------------------------------------
 
@@ -368,15 +431,15 @@ class DevicePipeline:
                 else:
                     rows.append((i, hdr, block[hdr.header_size() :], sbb))
         lo = 0
-        waves = _waves(rows, lambda r: max(r[3], len(r[2])))
+        waves = _waves(rows, lambda r: max(r[3], len(r[2])), wave_bytes(self.mesh))
         for k, wave in enumerate(waves):
             hi = len(blocks) if k == len(waves) - 1 else wave[-1][0] + 1
             self._decode_wave(wave, range(lo, hi), blocks, finals, want_crc, bnd)
             lo = hi
         if self.device_crc_verify and not self.device_prepass:
             with t.stage("decode/crc_verify"):
-                for grp in _waves(list(range(len(blocks))), lambda i: len(finals[i])):
-                    crcs = crc32_cuda.crc32_batch(*self._upload([finals[i] for i in grp]))
+                for grp in _waves(list(range(len(blocks))), lambda i: len(finals[i]), WAVE_BYTES):
+                    crcs = crc32_cuda.crc32_batch(*_upload([finals[i] for i in grp], self.device))
                     for i, crc in zip(grp, crcs.tolist()):
                         if crc != want_crc[i]:
                             raise Bz3Error(BZ3_ERR_CRC)
@@ -418,26 +481,15 @@ class DevicePipeline:
     def _decode_wave(self, wave: list, span: range, blocks, finals: list[bytes],
                      want_crc: list[int], bnd: int) -> None:
         t = self.timer
-        with t.stage("decode/h2d"):
-            pw = _round_up(max(len(r[2]) for r in wave), 256)
-            ow = _round_up(max(r[3] for r in wave), 256)
-            pay, plens = _pad([r[2] for r in wave], pw)
-            sbb = torch.tensor([r[3] for r in wave], dtype=torch.int32)
-            idx = torch.tensor([r[1].bwt_idx for r in wave], dtype=torch.int32)
-            pay, plens = pay.to(self.device), plens.to(self.device)
-            sbb, idx = sbb.to(self.device), idx.to(self.device)
-        with t.stage("decode/cm"):
-            u = cm_cuda.cm_decode(pay, plens, sbb, ow)
-        with t.stage("decode/bwt"):
-            data = bwt_inverse_batch(u, sbb, idx)
+        cols = ([r[2] for r in wave], [r[3] for r in wave], [r[1].bwt_idx for r in wave])
         if self.device_prepass:
+            data, sbb = run_core(self._decode_rows(*cols, self.device), t)
             self._post_device(wave, span, blocks, data, sbb, finals, want_crc)
             return
-        with t.stage("decode/d2h"):
-            arr = data[:, : max(1, max(r[3] for r in wave))].cpu().numpy()
+        rows = self.decode_core_fn(*cols)
         with t.stage("decode/host_post"):
             for j, (i, hdr, _payload, size) in enumerate(wave):
-                cur = arr[j, :size].tobytes()
+                cur = rows[j]
                 if hdr.model & 2:
                     cur = host.lzp_decode(cur, bnd)
                     if cur is None:
@@ -452,6 +504,27 @@ class DevicePipeline:
         if not self.device_crc_verify:
             with t.stage("decode/crc_verify"):
                 self._check_crcs(span, finals, want_crc)
+
+    def decode_steps(self, payloads: list[bytes], sizes: list[int], indices: list[int], device):
+        """The decode core on ``device`` (a generator for ``run_core``):
+        ``_decode_rows``, then each row's ``sizes[j]`` bytes down."""
+        data, _ = yield from self._decode_rows(payloads, sizes, indices, device)
+        yield "decode/d2h"
+        arr = data[:, : max(1, max(sizes))].cpu().numpy()
+        return [arr[j, :size].tobytes() for j, size in enumerate(sizes)]
+
+    def _decode_rows(self, payloads: list[bytes], sizes: list[int], indices: list[int], device):
+        """Payloads up, K2 and the inverse BWT of rows of ``sizes`` bytes
+        with primary ``indices`` (a generator for ``run_core``): the rows
+        and their sizes on ``device``."""
+        yield "decode/h2d"
+        pay, plens = _upload(payloads, device)
+        sbb = torch.tensor(sizes, dtype=torch.int32).to(device)
+        idx = torch.tensor(indices, dtype=torch.int32).to(device)
+        yield "decode/cm"
+        u = cm_cuda.cm_decode(pay, plens, sbb, _round_up(max(sizes), 256))
+        yield "decode/bwt"
+        return bwt_inverse_batch(u, sbb, idx), sbb
 
     def _post_device(self, wave: list, span: range, blocks, data, sbb, finals: list[bytes],
                      want_crc: list[int]) -> None:
@@ -533,7 +606,7 @@ class DevicePipeline:
                     continue
                 model, lzp_size, rle_size, sbb, u, idx = meta
                 with t.stage("encode/cm"):
-                    row, lens = self._upload([u])
+                    row, lens = _upload([u], self.device)
                     payload, plens = cm_cuda.cm_encode_resumable(row, lens)
                 with t.stage("encode/d2h"):
                     plen = int(plens[0])
@@ -554,7 +627,7 @@ class DevicePipeline:
         t = self.timer
         cuda = self.device.type == "cuda"
         with t.stage("decode/h2d"):
-            pay, plens = self._upload([payload])
+            pay, plens = _upload([payload], self.device)
             sbb_t = torch.tensor([sbb], dtype=torch.int32).to(self.device)
         with t.stage("decode/cm"):
             u = torch.empty((1, sbb), dtype=torch.uint8, pin_memory=cuda)

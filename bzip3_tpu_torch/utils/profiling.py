@@ -6,16 +6,18 @@ package's ``utils/profiling.py``).
   ``log_dir`` (``chrome://tracing`` or Perfetto read it).
 - ``StageTimer``: wall time and calls per named stage, on when
   ``BZ3_TPU_PROFILE=1`` unless told otherwise.  Work on a CUDA device
-  is asynchronous, so a timer given ``sync`` (``torch.cuda.synchronize``)
-  calls it before reading the clock at the end of each stage; the stage
-  then holds its own device time instead of handing it to the next stage
-  that waits on the device.
+  is asynchronous, so a timer given ``sync`` (``device_sync`` of the
+  devices it times) calls it before reading the clock at the end of each
+  stage; the stage then holds its own device time instead of handing it
+  to the next stage that waits on the device.  Stages may close in
+  several threads at once.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Callable
@@ -40,6 +42,21 @@ def trace(log_dir: str):
         os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+def device_sync(devices) -> Callable[[], None] | None:
+    """A ``StageTimer`` sync that waits for every distinct card among
+    ``devices`` (``torch.cuda.synchronize`` waits for the current card
+    only); None when none of them is a card."""
+    cards = {d.index for d in map(torch.device, devices) if d.type == "cuda"}
+    if not cards:
+        return None
+
+    def sync() -> None:
+        for i in cards:
+            torch.cuda.synchronize(i)
+
+    return sync
+
+
 class StageTimer:
     """Accumulates wall time and calls per named stage; ``enabled=None``
     reads ``BZ3_TPU_PROFILE`` (on at 1)."""
@@ -51,6 +68,7 @@ class StageTimer:
         self.sync = sync
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -63,8 +81,10 @@ class StageTimer:
         finally:
             if self.sync is not None:
                 self.sync()
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.totals[name] += dt
+                self.counts[name] += 1
 
     def summary(self) -> str:
         lines = []

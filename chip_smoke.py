@@ -87,12 +87,29 @@ JSON line:
              stage times, and ``torch.sort`` alone at C1's key shape;
              and every P1 pass of the [16, N] encode against its plain
              version on the same card tensors, P2's payloads against
-             the plain range pass on each row's first 4 KiB.
+             the plain range pass on each row's first 4 KiB;
+16. main_sharded - main's 8 x 16 MiB at -b 16 through the sharded
+             engine, ``get_engine("sharded")`` (one share on one card),
+             then through two shares of the card (two threads, two
+             streams, 4 rows each): both streams equal to main's, one K1
+             and one K2 a share a wave, each share's K1 and K2 from CUDA
+             events on its stream, the overlap (the shares' K1 summed
+             over ``encode/cm``'s wall time), stage times, MiB/s and peak
+             memory; then BZ3_TPU_HOST_CRC=0 on 4 blocks of 1 MiB
+             through the two shares (K4 in each), its stream equal to
+             the host CRC's, and ``python -m bzip3_tpu_torch -e
+             --engine sharded`` on those blocks, the same blocks;
+17. multihost - two processes over gloo on the card, each coding its
+             ``host_stripe`` of main's first 4 blocks, gathered to rank 0
+             by ``gather_to_writer`` and equal to main's blocks; then one
+             rank over NCCL (world size 1), at the same time,
+             gathering main's blocks as rows on the card;
+18. dryrun  - ``dryrun_multichip(2, "cuda:0")``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a card, or outside a checkout of the repository, it
-exits non-zero before printing any result.  About 9 minutes in all.
+exits non-zero before printing any result.  About 10 minutes in all.
 """
 
 from __future__ import annotations
@@ -487,15 +504,17 @@ def phase_golden(card: str) -> None:
     emit({"phase": "golden", "card": card, "files": res})
 
 
-def _round_trip(card: str, phase: str, data: bytes, bs: int, blocks: int, **switches):
-    """``blocks`` x ``bs`` through the stream API on a profiled engine
-    with the given pipeline switches: (engine, compressed stream, result
-    line with throughput, launches, stage times and peak memory)."""
+def _round_trip(card: str, phase: str, data: bytes, bs: int, blocks: int, engine=None,
+                **switches):
+    """``blocks`` x ``bs`` through the stream API on ``engine``, by default
+    a profiled device engine with the given pipeline switches: (engine,
+    compressed stream, result line with throughput, launches, stage times
+    and peak memory)."""
     import torch
     from bzip3_tpu_torch import compress_file, decompress_file
     from bzip3_tpu_torch.engines import DeviceEngine
 
-    eng = DeviceEngine("cuda", profile=True, **switches)
+    eng = engine or DeviceEngine("cuda", profile=True, **switches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1719,6 +1738,226 @@ def phase_main_parallel(card: str, data: bytes, parity: dict, lat: dict, bs: int
     return out
 
 
+def _sharded_run(card: str, run: str, data: bytes, bs: int, blocks: int, engine,
+                 stream: bytes) -> dict:
+    """One round trip of a sharded engine through the stream API: its
+    stream must be ``stream`` (main's); one K1 and one K2 a share a wave;
+    each share's K1 and K2 from CUDA events on its stream, and the
+    overlap, the shares' kernel times summed over the stage's wall time
+    (the share count for perfect overlap, 1.0 for none)."""
+    _, got, out = _round_trip(card, "main_sharded", data, bs, blocks, engine=engine)
+    _require(got == stream, f"main_sharded {run}: stream differs from main's")
+    shares = len(engine.mesh)
+    launches, calls = out["launches"], out["stage_calls"]
+    _require({k for k, v in launches.items() if v} == set(DEFAULT_PATH), launches)
+    _require(launches["cm_encode"] == shares * calls["encode/cm"]
+             and launches["cm_decode"] == shares * calls["decode/cm"], (launches, calls))
+    ms = engine.share_ms()
+    out.update(run=run, mesh=[str(d) for d in engine.mesh], share_stages_ms=ms,
+               share_k1_ms=[m["encode/cm"] for m in ms], share_k2_ms=[m["decode/cm"] for m in ms],
+               timing="CUDA events on each share's stream around its stages")
+    out["overlap_k1"] = sum(out["share_k1_ms"]) / (out["stages_s"]["encode/cm"] * 1e3)
+    out["overlap_k2"] = sum(out["share_k2_ms"]) / (out["stages_s"]["decode/cm"] * 1e3)
+    emit(out)
+    return out
+
+
+def phase_main_sharded(card: str, data: bytes, bs: int, blocks: int, stream: bytes,
+                       host_crc_blocks: int = 4) -> dict:
+    """The sharded engine on main's data at -b 16: through
+    ``get_engine("sharded")`` (every card, one share on one card), then
+    through two shares of one card (``mesh=["cuda:0", "cuda:0"]``: two
+    threads, two streams, 4 rows each); each stream equal to main's, no
+    row coded again.  Then ``host_crc=False`` (``BZ3_TPU_HOST_CRC=0``) on
+    ``host_crc_blocks`` blocks of 1 MiB through the two shares, K4 inside
+    each: its stream equal to the host CRC's; and ``python -m
+    bzip3_tpu_torch -e --engine sharded`` on those blocks (files under
+    ``_build/sharded/``), its blocks the same."""
+    import torch
+    from bzip3_tpu_torch.engines import DeviceEngine, get_engine
+
+    with _env(BZ3_TPU_PROFILE="1"):
+        one = get_engine("sharded")
+    two = DeviceEngine("cuda", profile=True, mesh=["cuda:0", "cuda:0"])
+    res = {"one_share": _sharded_run(card, "one_share", data, bs, blocks, one, stream),
+           "two_shares": _sharded_run(card, "two_shares", data, bs, blocks, two, stream)}
+    small, streams = data[: host_crc_blocks * MiB], {}
+    for host_crc in ("1", "0"):
+        with _env(BZ3_TPU_HOST_CRC=host_crc):
+            eng = DeviceEngine("cuda", profile=True, mesh=["cuda:0", "cuda:0"])
+            _, streams[host_crc], out = _round_trip(card, "main_sharded", small, MiB,
+                                                    host_crc_blocks, engine=eng)
+    _require(streams["0"] == streams["1"], "K4 inside the shares changed the stream")
+    _require(out["launches"]["crc_lanes"] == 2 * out["stage_calls"]["encode/crc"], out)
+    out.update(run="host_crc_off", mesh=["cuda:0", "cuda:0"], identical_to_host_crc=True)
+    # the CLI's --engine sharded on the same data: the same blocks
+    os.makedirs(SHARDED_DIR, exist_ok=True)
+    src = os.path.join(SHARDED_DIR, "small")
+    with open(src, "wb") as f:
+        f.write(small)
+    rc, cli_s, err = _cli("-e", "-b", "1", "-f", "--engine", "sharded", src, src + ".bz3")
+    with open(src + ".bz3", "rb") as f:
+        # the CLI's batches of 8 leave out the empty last block of batches of 4
+        same = _chunks(f.read(), MiB) == _chunks(streams["1"], MiB)[:host_crc_blocks]
+    _require(rc == 0 and same, f"--engine sharded -e: {rc} {err}")
+    out["cli_engine_sharded"] = {"encode_s": cli_s, "identical_blocks": True}
+    emit(out)
+    res["host_crc_off"] = out
+    torch.cuda.empty_cache()
+    return res
+
+
+MULTIHOST_DIR = os.path.join(ROOT, "_build", "multihost")
+SHARDED_DIR = os.path.join(ROOT, "_build", "sharded")
+
+
+def multihost_worker(job: str, out_prefix: str, bs: int, n: int, backend: str,
+                     encode: bool) -> None:
+    """One rank of phase_multihost, spawned with MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE and RANK: joins over ``backend`` ("default": the
+    package's choice), codes its ``host_stripe`` of the ``n`` blocks of
+    ``job`` on the card (or, without ``encode``, takes main's coded
+    blocks), pads them to bound(bs) on the card and gathers them to rank
+    0, which holds them against main's blocks; writes its result to
+    ``out_prefix``.<rank>.json."""
+    import pickle
+
+    import torch
+    from bzip3_tpu_torch.container.bound import bound
+    from bzip3_tpu_torch.parallel import multihost as mh
+    from bzip3_tpu_torch.parallel.sharding import sharded_pipeline
+    from bzip3_tpu_torch.utils.profiling import StageTimer, device_sync
+
+    mh.initialize(backend=None if backend == "default" else backend)
+    dist = torch.distributed
+    rank = dist.get_rank()
+    with open(job, "rb") as f:
+        want = pickle.load(f)
+    stripe = list(mh.host_stripe(n))
+    out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "stripe": stripe}
+    reset_launches()
+    if encode:
+        mesh = mh.global_mesh()
+        timer = StageTimer(enabled=True, sync=device_sync(mesh))
+        t0 = time.perf_counter()
+        coded = sharded_pipeline(bs, mesh, timer=timer).encode_blocks(
+            [want["data"][i * bs : (i + 1) * bs] for i in stripe])
+        out.update(encode_s=time.perf_counter() - t0, stages_s=dict(timer.totals),
+                   launches=launch_counts())
+    else:
+        coded = [want["blocks"][i] for i in stripe]
+    pad, lens = _pad(coded, bound(bs))
+    rows, lens = torch.from_numpy(pad).cuda(), torch.from_numpy(lens).cuda()
+    dist.barrier()
+    t0 = time.perf_counter()
+    got, got_lens = mh.gather_to_writer(rows, lens)
+    out["gather_s"] = time.perf_counter() - t0
+    if rank == 0:
+        out["equal"] = [got[i, : got_lens[i]].tobytes() for i in range(n)] == want["blocks"][:n]
+        out["gathered_bytes"] = int(got.nbytes)
+    with open(f"{out_prefix}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _spawn(job: str, out_prefix: str, bs: int, n: int, backend: str, encode: bool,
+           world: int, card_each: bool = False) -> list:
+    """``world`` processes of multihost_worker, all on this card or with
+    ``card_each`` rank r on card r alone (CUDA_VISIBLE_DEVICES)."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(world), "GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo",
+           "PYTHONPATH": ROOT}
+    code = (f"import chip_smoke; chip_smoke.multihost_worker({job!r}, {out_prefix!r}, {bs}, "
+            f"{n}, {backend!r}, {encode})")
+    return [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                             env={**env, "RANK": str(r),
+                                  **({"CUDA_VISIBLE_DEVICES": str(r)} if card_each else {})},
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def _results(procs: list, out_prefix: str, backend: str, timeout: int = 300) -> list[dict]:
+    """The results of _spawn's processes once they end; every one is
+    stopped if one fails or the time runs out."""
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        _require(p.returncode == 0, f"{backend} rank {r} failed ({p.returncode}):\n{log[-4000:]}")
+    res = []
+    for r in range(len(procs)):
+        with open(f"{out_prefix}.{r}.json") as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_multihost(card: str, data: bytes, bs: int, stream: bytes, n: int = 4) -> dict:
+    """The torch.distributed layer on the card: two processes over gloo
+    on cuda:0 (NCCL refuses two ranks on one card), each coding its
+    ``host_stripe`` of main's first ``n`` blocks, then ``gather_to_writer``
+    assembling them on rank 0, equal to main's first ``n`` blocks; and at
+    the same time one rank over NCCL (world size 1, the package's default
+    backend on a card) gathering main's coded blocks as rows on the card."""
+    import pickle
+
+    import torch
+
+    blocks = [b for _, b in _chunks(stream, bs)[:n]]
+    os.makedirs(MULTIHOST_DIR, exist_ok=True)
+    job = os.path.join(MULTIHOST_DIR, "job.pickle")
+    with open(job, "wb") as f:
+        pickle.dump({"data": data[: n * bs], "blocks": blocks}, f)
+    torch.cuda.empty_cache()  # the ranks' own contexts share the card
+    t0 = time.perf_counter()
+    prefix = {b: os.path.join(MULTIHOST_DIR, b) for b in ("gloo", "nccl")}
+    jobs = {"gloo": _spawn(job, prefix["gloo"], bs, n, "gloo", True, 2),
+            "nccl": _spawn(job, prefix["nccl"], bs, n, "default", False, 1)}
+    try:
+        gloo = _results(jobs["gloo"], prefix["gloo"], "gloo")
+        nccl = _results(jobs["nccl"], prefix["nccl"], "nccl")
+    finally:
+        for p in jobs["gloo"] + jobs["nccl"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    _require(gloo[0]["equal"], "the gloo ranks' gathered blocks differ from main's")
+    _require([g["stripe"] for g in gloo] == [list(range(r, n, 2)) for r in range(2)], gloo)
+    _require(all(g["launches"]["cm_encode"] == 1 for g in gloo), gloo)
+    _require(nccl[0]["backend"] == "nccl" and nccl[0]["equal"], nccl)
+    out = {"phase": "multihost", "card": card, "block_size": bs, "blocks": n, "gloo": gloo,
+           "nccl": nccl, "wall_s": wall_s}
+    emit(out)
+    return out
+
+
+def phase_dryrun(card: str) -> dict:
+    """``dryrun_multichip(2, "cuda:0")``: the sharded encode and decode
+    cores on two shares of the card at 4 rows of 512 bytes, K4 in each."""
+    import torch
+    from bzip3_tpu_torch.parallel.sharding import dryrun_multichip
+
+    reset_launches()
+    t0 = time.perf_counter()
+    dryrun_multichip(2, "cuda:0")
+    torch.cuda.synchronize()
+    out = {"phase": "dryrun", "card": card, "n_devices": 2, "device": "cuda:0",
+           "s": time.perf_counter() - t0, "launches": launch_counts()}
+    _require(all(out["launches"][k] == 2 for k in ("cm_encode", "cm_decode", "crc_lanes")), out)
+    emit(out)
+    return out
+
+
 SURFACE_DIR = os.path.join(ROOT, "_build", "surface")
 
 
@@ -2158,6 +2397,9 @@ def main() -> int:
     over = phase_main_oversize(smi, data[: 6 * bs] + log, b32)
     ppar = phase_parity_parallel(smi)
     mpar = phase_main_parallel(smi, data[: 16 * 2 * MiB], parity, lat)
+    phase_main_sharded(smi, data, bs, blocks, main_stream)
+    phase_multihost(smi, data, bs, main_stream)
+    phase_dryrun(smi)
     emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over,
                       built["resources"], surface, ppar, mpar))
     print(smi, flush=True)

@@ -117,8 +117,9 @@ def test_help_and_default_device(files, capsys):
                        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, timeout=120)
     assert r.returncode == 0 and b"Usage" in r.stdout and b"--engine" in r.stdout
     assert cli("-V") == 0 and "bzip3" in capsys.readouterr().out
-    if not torch.cuda.is_available():  # the default engine runs on the card
-        assert cli("-e", "-c", files[0]) == 1
-        assert "CUDA" in capsys.readouterr().err
+    if not torch.cuda.is_available():  # the default and sharded engines run on the card
+        for engine in ("device", "sharded"):
+            assert cli("-e", "-c", "--engine", engine, files[0]) == 1
+            assert "CUDA" in capsys.readouterr().err
     with pytest.raises(SystemExit):  # argparse refuses a name not in the registry
-        main(["-e", "--engine", "sharded"])
+        main(["-e", "--engine", "tpu"])

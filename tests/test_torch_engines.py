@@ -144,8 +144,8 @@ def test_get_engine_names():
     assert isinstance(get_engine("device", device="cpu"), DeviceEngine)
     hyb = get_engine("hybrid", device="cpu")
     assert isinstance(hyb, HybridEngine) and hyb.stages is native.STAGES
-    with pytest.raises(ValueError, match="multi-GPU"):
-        get_engine("sharded")
+    sharded = get_engine("sharded", device="cpu")
+    assert isinstance(sharded, DeviceEngine) and sharded.name == "sharded"
     with pytest.raises(ValueError, match="unknown engine"):
         get_engine("tpu")
 
