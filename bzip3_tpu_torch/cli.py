@@ -163,7 +163,7 @@ def main(argv=None):
     block_size = args.block * MiB
     if not validate_block_size(block_size):
         _die("Block size must be between 65 KiB and 511 MiB.")
-    batch_size = max(1, args.jobs) if args.jobs else 8
+    batch_size = max(1, args.jobs) if args.jobs else (os.cpu_count() or 4)
     jobs = _jobs(args, mode)
     try:
         engine = get_engine(args.engine, args.jobs, device=args.device)

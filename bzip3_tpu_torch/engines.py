@@ -83,7 +83,9 @@ class DeviceEngine:
     devices): by default every card, or with ``device="cpu"`` one CPU
     share; a ``mesh`` given implies ``sharded``.  There the host passes
     always run, so ``device_prepass`` does not apply (``sharded_pipeline``
-    says what the CRC switches do)."""
+    says what the CRC switches do).  ``n_threads`` sizes the pipelines'
+    host pool (0: ``os.cpu_count()``), as ``-j`` does for the other
+    engines."""
 
     name = "device"
 
@@ -96,6 +98,7 @@ class DeviceEngine:
         device_crc_verify: bool | None = None,
         sharded: bool = False,
         mesh=None,
+        n_threads: int = 0,
     ):
         self.device = resolve_device(device)
         self.mesh = None
@@ -111,17 +114,20 @@ class DeviceEngine:
             "host_crc": host_crc,
             "device_crc_verify": device_crc_verify,
         }
+        self.n_threads = n_threads
         self._pipes: dict[int, DevicePipeline] = {}
         self.stages = block_stages(self.device)
 
     def _pipe(self, block_size: int) -> DevicePipeline:
         if block_size not in self._pipes:
             if self.mesh is None:
-                pipe = DevicePipeline(block_size, self.device, timer=self.timer, **self._switches)
+                pipe = DevicePipeline(block_size, self.device, timer=self.timer,
+                                      threads=self.n_threads, **self._switches)
             else:
                 pipe = sharded_pipeline(block_size, self.mesh, timer=self.timer,
                                         host_crc=self._switches["host_crc"],
-                                        device_crc_verify=self._switches["device_crc_verify"])
+                                        device_crc_verify=self._switches["device_crc_verify"],
+                                        threads=self.n_threads)
             self._pipes[block_size] = pipe
         return self._pipes[block_size]
 
@@ -166,7 +172,7 @@ class HybridEngine:
     def __init__(self, n_threads: int = 0, device_share: float | None = None,
                  device="cuda"):
         self._native = NativeEngine(n_threads)
-        self._device = DeviceEngine(device)
+        self._device = DeviceEngine(device, n_threads=n_threads)
         self.stages = self._native.stages
         if device_share is None:
             device_share = float(os.environ.get("BZ3_TPU_HYBRID_SHARE", "0.07"))
@@ -205,9 +211,9 @@ def get_engine(name: str = "auto", n_threads: int = 0, device="cuda"):
     if name == "native":
         return NativeEngine(n_threads)
     if name == "device":
-        return DeviceEngine(device)
+        return DeviceEngine(device, n_threads=n_threads)
     if name == "sharded":
-        return DeviceEngine(device, sharded=True)
+        return DeviceEngine(device, sharded=True, n_threads=n_threads)
     if name == "hybrid":
         return HybridEngine(n_threads, device=device)
     raise ValueError(f"unknown engine {name!r}")

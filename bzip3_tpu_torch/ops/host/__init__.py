@@ -49,37 +49,46 @@ def crc32(data: bytes) -> int:
     return _lib().bz3h_crc32(data, len(data))
 
 
+def _buf(n: int) -> np.ndarray:
+    """An output buffer of n bytes, left unfilled: the stage writes what
+    it returns, and the LZP stages clear their own table.  Only the bytes
+    written are copied out (``_out``), so that a pool thread holds the
+    interpreter lock for one copy of its result, not for filling and
+    copying whole buffers."""
+    return np.empty(n, np.uint8)
+
+
+def _out(buf: np.ndarray, r: int) -> bytes | None:
+    return None if r < 0 else buf[:r].tobytes()
+
+
 def rle_encode(data: bytes) -> bytes:
     """mRLE; the result is longer than the input when the stage expands."""
     # output is bounded by 32 + 2n (worst case: every byte a gated single)
-    out = ctypes.create_string_buffer(2 * len(data) + 64)
-    r = _lib().bz3h_rle_encode(data, len(data), out, len(out))
+    out = _buf(2 * len(data) + 64)
+    r = _lib().bz3h_rle_encode(data, len(data), out.ctypes.data, len(out))
     if r < 0:
         raise RuntimeError("rle_encode overran its 32 + 2n output bound")
-    return out.raw[:r]
+    return _out(out, r)
 
 
 def rle_decode(data: bytes, out_len: int) -> bytes | None:
     """Inverse mRLE to exactly ``out_len`` bytes; None on a bad stream."""
-    out = ctypes.create_string_buffer(max(64, out_len))
-    r = _lib().bz3h_rle_decode(data, len(data), out, out_len)
-    return None if r < 0 else out.raw[:r]
+    out = _buf(max(64, out_len))
+    return _out(out, _lib().bz3h_rle_decode(data, len(data), out.ctypes.data, out_len))
 
 
 def lzp_encode(data: bytes) -> bytes | None:
     """LZP; None when the stage does not apply or would not shrink."""
-    out = ctypes.create_string_buffer(max(64, len(data)))
-    lut = ctypes.create_string_buffer(LZP_LUT_BYTES)
-    r = _lib().bz3h_lzp_encode(data, len(data), out, lut)
-    return None if r < 0 else out.raw[:r]
+    out, lut = _buf(max(64, len(data))), _buf(LZP_LUT_BYTES)
+    return _out(out, _lib().bz3h_lzp_encode(data, len(data), out.ctypes.data, lut.ctypes.data))
 
 
 def lzp_decode(data: bytes, max_out: int) -> bytes | None:
     """Inverse LZP bounded by ``max_out``; None on a malformed stream."""
-    out = ctypes.create_string_buffer(max(64, max_out))
-    lut = ctypes.create_string_buffer(LZP_LUT_BYTES)
-    r = _lib().bz3h_lzp_decode(data, len(data), out, max_out, lut)
-    return None if r < 0 else out.raw[:r]
+    out, lut = _buf(max(64, max_out)), _buf(LZP_LUT_BYTES)
+    r = _lib().bz3h_lzp_decode(data, len(data), out.ctypes.data, max_out, lut.ctypes.data)
+    return _out(out, r)
 
 
 def bwt_forward(data: bytes) -> tuple[bytes, int]:

@@ -21,8 +21,11 @@ its stream around each of its stages (``ShardedCores.share_ms``).  A
 share that raises makes the call raise once every share has ended that
 stage.  The JAX package's ``psum`` of compressed bytes is a host sum
 over the shares (the encode core's ``total``).  A wave holds up to
-``wave_bytes(mesh)``: one card's ``WAVE_BYTES`` for each distinct
-device of the mesh.
+``wave_rows(mesh)`` rows, each distinct device's (one a streaming
+multiprocessor of a card), and ``wave_bytes(mesh)``, each distinct
+device's budget: shares of one device split it.  Each share runs the
+forward and inverse BWT in its own row groups; its inverse groups' rows
+go to the pipeline's host pool as they come down.
 """
 
 from __future__ import annotations
@@ -35,10 +38,11 @@ import numpy as np
 import torch
 
 from ..ops import host
-from ..pipeline import DevicePipeline, resolve_device, wave_bytes
+from ..pipeline import DevicePipeline, resolve_device, wave_bytes, wave_rows
 from ..utils.profiling import StageTimer, device_sync
 
-__all__ = ["make_mesh", "wave_bytes", "ShardedCores", "sharded_pipeline", "dryrun_multichip"]
+__all__ = ["make_mesh", "wave_bytes", "wave_rows", "ShardedCores", "sharded_pipeline",
+           "dryrun_multichip"]
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> list[torch.device]:
@@ -111,11 +115,17 @@ class ShardedCores:
         out["total"] = sum(sum(map(len, r["body"])) for r in res)
         return out
 
-    def decode(self, payloads: list[bytes], sizes: list[int], indices: list[int]) -> list[bytes]:
+    def decode(self, payloads: list[bytes], sizes: list[int], indices: list[int],
+               on_rows=None) -> list[bytes]:
         """``decode_core_fn``: each share's ``decode_steps``, the rows in
-        order."""
+        order; each share hands its inverse groups' rows to ``on_rows``
+        (from its thread) at their rows in the wave."""
+        def shifted(a: int):
+            return None if on_rows is None else lambda s, rows: on_rows(a + s, rows)
+
         res = self._run([
-            (s, self.pipe.decode_steps(payloads[a:b], sizes[a:b], indices[a:b], self.mesh[s]))
+            (s, self.pipe.decode_steps(payloads[a:b], sizes[a:b], indices[a:b], self.mesh[s],
+                                       shifted(a)))
             for s, a, b in _shares(len(payloads), len(self.mesh))
         ])
         return [row for r in res for row in r]
@@ -182,7 +192,8 @@ class ShardedCores:
 
 def sharded_pipeline(block_size: int, mesh=None, timer: StageTimer | None = None,
                      host_crc: bool | None = None,
-                     device_crc_verify: bool | None = None) -> DevicePipeline:
+                     device_crc_verify: bool | None = None,
+                     threads: int | None = None) -> DevicePipeline:
     """A ``DevicePipeline`` whose cores run over ``mesh`` (``make_mesh``'s
     devices; by default every card), as the JAX package's.
 
@@ -200,13 +211,15 @@ def sharded_pipeline(block_size: int, mesh=None, timer: StageTimer | None = None
       first device: the JAX package's override never reaches it either.
 
     The bytes are the same on every route.  ``timer`` defaults to a
-    ``StageTimer`` whose sync waits for every card of the mesh.
+    ``StageTimer`` whose sync waits for every card of the mesh;
+    ``threads`` sizes the host pool.
     """
     mesh = make_mesh(devices=mesh)
     if timer is None:
         timer = StageTimer(sync=device_sync(mesh))
     pipe = DevicePipeline(block_size, mesh[0], timer=timer, device_prepass=False,
-                          host_crc=host_crc, device_crc_verify=device_crc_verify)
+                          host_crc=host_crc, device_crc_verify=device_crc_verify,
+                          threads=threads)
     cores = ShardedCores(pipe, mesh)
     pipe.mesh = mesh
     pipe.encode_core_fn = cores.encode

@@ -53,10 +53,17 @@ JSON line:
              with the lane combine, as encode/crc runs it); K5/K6's
              windows and events of each row, their bounds by bytes and
              by the L2 round trip;
-11. parity_resume - K3a, K3b and K3c (the resumable CM kernels) against
+11. main_wave - one wave that fills the card: main's 8 blocks, main_prepass's
+             8 and 16 blocks of fresh seeded text (32 x 16 MiB) through
+             ``compress_file`` / ``decompress_file`` in one batch at -b 16:
+             blocks 0-15 equal to main's and main_prepass's, one K1 and
+             one K2 launch, the BWT and inverse groups, the host pool's
+             waits and MiB/s; then K1 and K2 at [1, 1 Mi] and [SMs, 1 Mi]
+             on post-BWT rows, and their ratio;
+12. parity_resume - K3a, K3b and K3c (the resumable CM kernels) against
              their plain versions on CPU copies of the same rows, in
              launches of 256 steps, byte for byte, and against K1/K2;
-12. main_b32 - the device path at -b 32: a text block and a log block
+13. main_b32 - the device path at -b 32: a text block and a log block
              of 32 MiB through ``compress_file`` / ``decompress_file``,
              CM-coded by K3a/K3b in two launches of 16 Mi steps, each
              launch timed with CUDA events as it runs; then K1 in one
@@ -64,13 +71,13 @@ JSON line:
              one launch on them the rows K3b gave back (K3a/K3b against
              K1/K2, whose body they share, timed in one call), and K3b
              at the full width must equal the plain decoder on a prefix;
-13. main_oversize - one 144 MiB block at -b 144, past the 128 MiB
+14. main_oversize - one 144 MiB block at -b 144, past the 128 MiB
              device-block cap: the host-BWT hybrid (host SA-IS, K3a, K3c,
              host inverse BWT), its launches timed as they run, the host
              SA-IS held against the device BWT, and K3a and K3c at the
              full width against the plain coders on a prefix; K3a's and
              K3c's ns a bit step against K1's and K2's from main_b32;
-14. parity_parallel - P1 (the chain window scans, each mode and rate)
+15. parity_parallel - P1 (the chain window scans, each mode and rate)
              and P2 (the range pass) against their plain versions: the
              parallel CM encoder on the card and on the CPU over the
              same post-BWT hazard rows at seg 128 and 2048 and in the
@@ -78,7 +85,7 @@ JSON line:
              call on equal inputs, P2 again under an output cap; the
              card's runs under ``trace`` (torch.profiler), whose Chrome
              trace must name both kernels;
-15. main_parallel - BZ3_TPU_CM=parallel at -b 2: 16 blocks x 2 MiB of
+16. main_parallel - BZ3_TPU_CM=parallel at -b 2: 16 blocks x 2 MiB of
              text through ``compress_file`` / ``decompress_file``, P1
              and P2 timed launch by launch; the stream equal to the K1
              route's, no row coded again, the golden streams re-encoded
@@ -88,7 +95,7 @@ JSON line:
              and every P1 pass of the [16, N] encode against its plain
              version on the same card tensors, P2's payloads against
              the plain range pass on each row's first 4 KiB;
-16. main_sharded - main's 8 x 16 MiB at -b 16 through the sharded
+17. main_sharded - main's 8 x 16 MiB at -b 16 through the sharded
              engine, ``get_engine("sharded")`` (one share on one card),
              then through two shares of the card (two threads, two
              streams, 4 rows each): both streams equal to main's, one K1
@@ -99,17 +106,17 @@ JSON line:
              through the two shares (K4 in each), its stream equal to
              the host CRC's, and ``python -m bzip3_tpu_torch -e
              --engine sharded`` on those blocks, the same blocks;
-17. multihost - two processes over gloo on the card, each coding its
+18. multihost - two processes over gloo on the card, each coding its
              ``host_stripe`` of main's first 4 blocks, gathered to rank 0
              by ``gather_to_writer`` and equal to main's blocks; then one
              rank over NCCL (world size 1), at the same time,
              gathering main's blocks as rows on the card;
-18. dryrun  - ``dryrun_multichip(2, "cuda:0")``.
+19. dryrun  - ``dryrun_multichip(2, "cuda:0")``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a card, or outside a checkout of the repository, it
-exits non-zero before printing any result.  About 10 minutes in all.
+exits non-zero before printing any result.  About 11 minutes in all.
 """
 
 from __future__ import annotations
@@ -997,9 +1004,10 @@ def sparse_block(size: int, seed: int) -> bytes:
     return out.tobytes()
 
 
-def phase_main_prepass(card: str, data: bytes, bs: int, blocks: int) -> dict:
+def phase_main_prepass(card: str, data: bytes, bs: int, blocks: int) -> tuple[dict, bytes]:
     """The device prepass chain at full width: ``blocks`` x ``bs``
-    through the stream API on the card, against the default path."""
+    through the stream API on the card, against the default path.
+    (result line, compressed stream)"""
     from bzip3_tpu_torch import compress_file
     from bzip3_tpu_torch.engines import DeviceEngine
 
@@ -1016,7 +1024,7 @@ def phase_main_prepass(card: str, data: bytes, bs: int, blocks: int) -> dict:
     out.update({"models": models, "identical_to_default_path": True,
                 "crc_stages_s": {k: out["stages_s"][k] for k in ("encode/crc", "decode/crc_verify")}})
     emit(out)
-    return out
+    return out, comp
 
 
 def phase_prepass_shapes(card: str, data: bytes, bs: int, blocks: int, lat: dict) -> dict:
@@ -1738,6 +1746,67 @@ def phase_main_parallel(card: str, data: bytes, parity: dict, lat: dict, bs: int
     return out
 
 
+def phase_main_wave(card: str, data: bytes, pdata: bytes, stream: bytes, pstream: bytes,
+                    bs: int, fresh_blocks: int = 16, probe_n: int = MiB) -> dict:
+    """One wave that fills the card: main's 8 text blocks, main_prepass's
+    8 (text, log lines, sparse) and ``fresh_blocks`` of fresh seeded text
+    at -b 16 through ``compress_file`` / ``decompress_file`` in one batch.
+    Its first 16 blocks must equal main's and main_prepass's; K1 and K2
+    launch once each; no row is coded again.  Prints the stage times (the
+    pool's pre-pass wait, each BWT group), the BWT and inverse groups,
+    peak memory and MiB/s.  Then K1 and K2 on post-BWT rows of
+    ``probe_n`` bytes at [1, probe_n] and at [SMs, probe_n], and their
+    ratios: whether a launch still takes one row's time when every SM
+    holds a row."""
+    import torch
+    from bzip3_tpu_torch.ops.device import cm_cuda
+    from bzip3_tpu_torch.pipeline import bwt_row_groups, wave_rows
+    from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch
+
+    wdata = data[: 8 * bs] + pdata[: 8 * bs] + corpus(fresh_blocks * bs, seed=3)
+    blocks = len(wdata) // bs
+    _, comp, out = _round_trip(card, "main_wave", wdata, bs, blocks)
+    got = _chunks(comp, bs)
+    _require(got[:8] == _chunks(stream, bs)[:8], "main_wave: blocks 0-7 differ from main's")
+    _require(got[8:16] == _chunks(pstream, bs)[:8],
+             "main_wave: blocks 8-15 differ from main_prepass's")
+    launches, calls = out["launches"], out["stage_calls"]
+    _require({k for k, v in launches.items() if v} == set(DEFAULT_PATH), launches)
+    _require(launches["cm_encode"] == 1 and launches["cm_decode"] == 1,
+             f"main_wave: K1/K2 launched {launches}, once each wanted")
+    out.update(identical_blocks=16, wave_rows=wave_rows(["cuda:0"]),
+               bwt_groups=calls["encode/bwt"], inverse_groups=calls["decode/bwt"],
+               cpu_count=os.cpu_count())
+    torch.cuda.empty_cache()
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    arr, lens = _pad([wdata[i * probe_n : (i + 1) * probe_n] for i in range(sms)], probe_n)
+    x, l_gpu = torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
+    g = bwt_row_groups(sms, probe_n, x.device)
+    u = torch.cat([bwt_forward_batch(x[s : s + g], l_gpu[s : s + g])[0]
+                   for s in range(0, sms, g)])
+    probe = {"shape": [sms, probe_n]}
+    for k, rows in (("one", 1), ("sms", sms)):
+        (pay, plens), probe[f"k1_{k}_ms"] = _timed(lambda: cm_cuda.cm_encode(u[:rows], l_gpu[:rows]))
+        dec, probe[f"k2_{k}_ms"] = _timed(
+            lambda: cm_cuda.cm_decode(pay, plens, l_gpu[:rows], probe_n))
+        _require(torch.equal(dec, u[:rows]), f"K2(K1(u)) differs at [{rows}, {probe_n}]")
+        if k == "one":
+            first = pay[0, : int(plens[0])]
+        else:
+            _require(torch.equal(pay[0, : int(plens[0])], first),
+                     "row 0's payload depends on the rows beside it")
+        for kid in ("k1", "k2"):
+            probe[f"{kid}_{k}_ns_per_bit_step"] = probe[f"{kid}_{k}_ms"] * 1e6 / (8 * probe_n)
+    probe["k1_sms_over_one"] = probe["k1_sms_ms"] / probe["k1_one_ms"]
+    probe["k2_sms_over_one"] = probe["k2_sms_ms"] / probe["k2_one_ms"]
+    out["sm_probe"] = probe
+    del x, u, dec, pay
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 def _sharded_run(card: str, run: str, data: bytes, bs: int, blocks: int, engine,
                  stream: bytes) -> dict:
     """One round trip of a sharded engine through the stream API: its
@@ -1797,7 +1866,7 @@ def phase_main_sharded(card: str, data: bytes, bs: int, blocks: int, stream: byt
         f.write(small)
     rc, cli_s, err = _cli("-e", "-b", "1", "-f", "--engine", "sharded", src, src + ".bz3")
     with open(src + ".bz3", "rb") as f:
-        # the CLI's batches of 8 leave out the empty last block of batches of 4
+        # the CLI without -j writes no trailing empty block; batches of 4 above do
         same = _chunks(f.read(), MiB) == _chunks(streams["1"], MiB)[:host_crc_blocks]
     _require(rc == 0 and same, f"--engine sharded -e: {rc} {err}")
     out["cli_engine_sharded"] = {"encode_s": cli_s, "identical_blocks": True}
@@ -2263,7 +2332,7 @@ def _parallel_rows(ppar: dict, mpar: dict, resources: dict) -> list[dict]:
 
 def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: dict,
                  pshapes: dict, resume: dict, b32: dict, over: dict, resources: dict,
-                 surface: dict, ppar: dict, mpar: dict) -> dict:
+                 surface: dict, ppar: dict, mpar: dict, wave: dict) -> dict:
     """The kernels of the main paths: launches from the main phases
     (K1/K2 from the default path, K4-K6 from the device prepass chain,
     K3a-K3c from main_b32 and main_oversize, P1/P2 from main_parallel),
@@ -2353,6 +2422,8 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
             row["launches_surface"] = surface["launches"][key]
         if kid in ("K1", "K2"):
             row["ms_one_row"] = one[f"{kid.lower()}_one_row_ms"]
+            row["launches_main_wave"] = wave["launches"][key]
+            row["ms_sms_rows_over_one"] = wave["sm_probe"][f"{kid.lower()}_sms_over_one"]
         if kid == "K4":
             row["ms_one_row"] = one["k4_one_row_queued_ms"]
             row["ms_one_row_idle_card"] = one["k4_one_row_ms"]
@@ -2389,8 +2460,9 @@ def main() -> int:
     surface = phase_surface(smi, data, bs, blocks, main_stream)
     # 4 text blocks, 3 of log lines, 1 sparse: LZP and RLE both kept
     pdata = data[: 4 * bs] + log_corpus(3 * bs, seed=1) + sparse_block(bs, seed=2)
-    pmain = phase_main_prepass(smi, pdata, bs, blocks)
+    pmain, pstream = phase_main_prepass(smi, pdata, bs, blocks)
     pshapes = phase_prepass_shapes(smi, pdata, bs, blocks, lat)
+    wave = phase_main_wave(smi, data, pdata, main_stream, pstream, bs)
     resume = phase_parity_resume(smi)
     log = pdata[4 * bs : 7 * bs]  # 48 MiB of log lines
     b32 = phase_main_b32(smi, data[: 2 * bs] + log[: 2 * bs])
@@ -2401,7 +2473,7 @@ def main() -> int:
     phase_multihost(smi, data, bs, main_stream)
     phase_dryrun(smi)
     emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over,
-                      built["resources"], surface, ppar, mpar))
+                      built["resources"], surface, ppar, mpar, wave))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

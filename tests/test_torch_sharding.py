@@ -120,14 +120,17 @@ def test_several_waves(monkeypatch):
     assert pipe.decode_blocks([(e, len(b)) for e, b in zip(enc, blocks)]) == blocks
 
 
-def test_wave_budget_counts_distinct_devices():
+def test_wave_budget_counts_distinct_devices(monkeypatch):
+    # each card's budget comes from its memory (an H100's, read here as given)
+    monkeypatch.setattr(pipeline, "_card", lambda dev: SimpleNamespace(
+        multi_processor_count=132, total_memory=85_045_846_016))
     cuda = [torch.device("cuda", i) for i in range(3)]
-    w = pipeline.WAVE_BYTES
+    w = pipeline.device_wave_bytes(cuda[0])
     assert wave_bytes(cuda[:1]) == w
     assert wave_bytes(cuda) == 3 * w
     assert wave_bytes([cuda[0], cuda[0]]) == w  # two shares of one card split its budget
     assert wave_bytes([cuda[0], cuda[1], cuda[1], cuda[2]]) == 3 * w
-    assert wave_bytes(["cpu"] * 8) == w
+    assert wave_bytes(["cpu"] * 8) == pipeline.WAVE_BYTES
     assert DevicePipeline(BS, device="cpu").mesh == [torch.device("cpu")]
 
 
