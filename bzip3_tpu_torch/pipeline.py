@@ -15,6 +15,11 @@ JAX package's ``encode_core_full`` / ``decode_core_full``:
              ->  K1  ->  meta and payload down  ->  header framing
     decode:  K2  ->  inverse BWT  ->  un-LZP (K6)  ->  un-RLE  ->  CRC (K4)
 
+The chain's tensor RLE runs in row groups (``chain_row_groups``), as the
+BWT does, since it peaks at ``CHAIN_PEAK_BYTES`` a byte of a group's
+rows; the encode uploads a group's raw rows at a time (and K4 CRCs
+them), and K5, K6 and the decode's K4 run over the whole wave.
+
 ``BZ3_TPU_CM`` selects the CM encoder of both paths as in the JAX
 package (``cm_impl``): K1, or under ``parallel`` the parallel encoder
 (P1/P2, ``cm_parallel_cuda``) for waves up to ``CM_PARALLEL_MAX_N`` wide;
@@ -36,11 +41,13 @@ Wave scheduling (the JAX package's ``DevicePipeline``, pipeline.py:95-112,
 - A wave is up to ``wave_rows(mesh)`` rows: on a card one a streaming
   multiprocessor, since K1/K2 run one CTA a row and a row's model fills
   an SM's shared memory, so a launch takes one row's time up to that
-  count; ``CPU_WAVE_ROWS`` on the CPU.  ``wave_bytes(mesh)`` bounds the
-  rows' bytes by what the card's memory holds for the wave's resident
-  buffers beside one forward BWT group.  ``BZ3_TPU_WAVE`` (rows) and
-  ``BZ3_TPU_WAVE_MIB`` (MiB of rows a device) override both, as in the
-  JAX package.  A wave's rows are padded to its longest row rounded up
+  count; ``CPU_WAVE_ROWS`` on the CPU.  ``wave_bytes(mesh, width)``
+  bounds the rows' bytes by what the card's memory holds for the wave's
+  resident buffers beside the peak of its widest group, forward or
+  inverse BWT or, under the device prepass, the chain (one row, where a
+  row is wider than a group's budget), once for each share of the card.
+  ``BZ3_TPU_WAVE`` (rows) and ``BZ3_TPU_WAVE_MIB`` (MiB of rows a
+  device) override both, as in the JAX package.  A wave's rows are padded to its longest row rounded up
   to 256 bytes.
 - Encode runs the forward BWT in row groups (``bwt_row_groups``:
   ``BZ3_TPU_BWT_GROUP_MIB`` / ``BZ3_TPU_BWT_GROUP_ROWS``, by default a
@@ -76,10 +83,18 @@ Mi steps (``-b 17`` and up) is CM-coded in launches of 16 Mi steps with
 its state carried between them (K3a/K3b, ``cm_cuda``), as the JAX
 package does.
 
-Oversize blocks (the JAX package's host-BWT hybrid, pipeline.py:1024-1222):
-a block size past ``BZ3_TPU_MAX_DEVICE_BLOCK_MIB`` (128 MiB by default)
-on the card, or on any device under ``BZ3_TPU_FORCE_OVERSIZE=1``, runs
-one block at a time:
+Oversize blocks (the JAX package's host-BWT hybrid, pipeline.py:1024-1222).
+On a card, a block size takes the wave path above when the wave
+planner's budget holds one row of it (``oversize_block``: its resident
+bytes beside its own group's peak, the chain's too under the device
+prepass, within ``MEM_SHARE`` of the card's memory): every size of the
+format up to 511 MiB on an H100 80GB, on either path; up to ~241 MiB on
+a card of 16 GiB (~194 MiB under the device prepass).  A wider block
+takes the hybrid, and so does a block size past
+``BZ3_TPU_MAX_DEVICE_BLOCK_MIB`` where that is set (on the card), or
+past it or its default of 128 MiB under ``BZ3_TPU_FORCE_OVERSIZE=1`` (on
+any device).  On the CPU the hybrid runs only when forced.  The hybrid
+runs one block at a time:
 
     encode:  host CRC, RLE/LZP gating and SA-IS BWT (block i+1 on a worker
              thread while block i codes)  ->  K3a CM encode  ->  framing
@@ -98,6 +113,7 @@ from __future__ import annotations
 
 import os
 import struct
+from collections import Counter, defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -120,17 +136,34 @@ CPU_WAVE_ROWS = 32
 # Bytes of rows a wave holds on the CPU.
 WAVE_BYTES = 256 << 20
 
-# What a card's memory holds, in bytes a byte of a wave's rows (H100,
-# chip_smoke.py).  The forward BWT's sort rounds peak at ~107 bytes a
-# byte of a group's rows (14.4 GB at [8, 16 Mi], 28.65 GB at [16, 16 Mi]);
-# a wave keeps resident its rows (cur), U, K1's output (n + n//8 + 64 a
+# What a card's memory holds, in bytes a byte of a wave's rows.  The
+# forward BWT's sort rounds peak at BWT_PEAK_BYTES a byte of a group's
+# rows, the inverse's LF sort at INV_PEAK_BYTES, the device chain's
+# tensor RLE and LZP at CHAIN_PEAK_BYTES (the larger of its encode and
+# decode sides); each is the largest of torch.cuda.max_memory_allocated
+# and max_memory_reserved over one row of 256 MiB and one of 511 MiB, the
+# row counted, rounded up (scripts/torch_wide_blocks.py --peaks on an
+# NVIDIA H100 80GB HBM3 at 700.00 W): forward 49.22 / 49.11 allocated,
+# 54.23 / 54.12 reserved (int64 ranks and temporaries took 114.22 /
+# 114.11 allocated); inverse 39.19 / 39.10 and 43.25 / 43.13 (81.22 /
+# 81.11); the chain's encode 58.00 / 58.01 and 68.05 / 68.03, its decode
+# 56.00 / 56.01 and 61.00 / 61.01.
+# A wave keeps resident its rows (cur), U, K1's output (n + n//8 + 64 a
 # row), K2's output and the payloads, under 6 bytes a byte.  A pipeline
 # plans for MEM_SHARE of the card's memory and gives BWT_SHARE of it to
-# one forward BWT group.
-BWT_PEAK_BYTES = 110
+# one forward BWT group: 309 MB of rows on an H100 80GB, 18 rows of 16
+# MiB as at 110 bytes a byte and a share of 0.4 (the group's size moves
+# no time: 28.4-31.1 ms a row at 4-32 rows, scripts/torch_wave_groups.py),
+# the rest to the wave's rows.
+BWT_PEAK_BYTES = 55
+INV_PEAK_BYTES = 44
+CHAIN_PEAK_BYTES = 70
 RESIDENT_BYTES = 6
 MEM_SHARE = 0.9
-BWT_SHARE = 0.4
+BWT_SHARE = 0.2
+# The JAX package's device-block cap (pipeline.py:472), which
+# BZ3_TPU_FORCE_OVERSIZE=1 reads when BZ3_TPU_MAX_DEVICE_BLOCK_MIB is unset.
+FORCED_MAX_DEVICE_BLOCK_MIB = 128
 # Bytes of rows an inverse BWT group holds on a card by default: groups
 # of 4 rows of 16 MiB took 1.150 s from the first inverse to the last
 # post-pass of 32 rows, against 1.255-1.464 s for 1, 2, 8 and 16 rows
@@ -186,26 +219,85 @@ def bwt_group_bytes(dev) -> int:
     return int(_card(dev).total_memory * BWT_SHARE / BWT_PEAK_BYTES)
 
 
-def device_wave_bytes(dev) -> int:
+def inverse_group_bytes(dev) -> int:
+    """Bytes of rows an inverse BWT group may hold on ``dev``:
+    ``BZ3_TPU_INV_GROUP_MIB``, else ``INV_GROUP_BYTES`` on a card and
+    ``WAVE_BYTES`` on the CPU."""
+    env = _env_bytes("BZ3_TPU_INV_GROUP_MIB")
+    if env is not None:
+        return env
+    return INV_GROUP_BYTES if torch.device(dev).type == "cuda" else WAVE_BYTES
+
+
+def chain_group_bytes(dev) -> int:
+    """Bytes of rows a group of the device chain (``device_prepass``) may
+    hold on ``dev``: as many as peak where a forward BWT group does,
+    ``bwt_group_bytes`` at ``BWT_PEAK_BYTES / CHAIN_PEAK_BYTES`` on a card,
+    ``bwt_group_bytes`` on the CPU."""
+    g = bwt_group_bytes(dev)
+    return g if torch.device(dev).type != "cuda" else g * BWT_PEAK_BYTES // CHAIN_PEAK_BYTES
+
+
+def group_peak_bytes(dev, width: int = 0, chain: bool = False) -> int:
+    """Peak bytes of the widest group of a wave of rows up to ``width``
+    bytes on ``dev``: a forward or inverse BWT group, or with ``chain`` a
+    group of the device chain; each group's peak a byte of its budget,
+    or of one row where a row is wider (a group always takes one row)."""
+    peaks = [BWT_PEAK_BYTES * max(bwt_group_bytes(dev), width),
+             INV_PEAK_BYTES * max(inverse_group_bytes(dev), width)]
+    if chain:
+        peaks.append(CHAIN_PEAK_BYTES * max(chain_group_bytes(dev), width))
+    return max(peaks)
+
+
+def card_wave_bytes(dev, width: int = 0, shares: int = 1, chain: bool = False) -> int:
+    """Bytes of rows a wave of rows up to ``width`` bytes wide may hold on
+    the card ``dev``: what ``MEM_SHARE`` of its memory holds at
+    ``RESIDENT_BYTES`` a byte beside ``group_peak_bytes`` for each of its
+    ``shares``, which run their groups at once."""
+    free = _card(dev).total_memory * MEM_SHARE - shares * group_peak_bytes(dev, width, chain)
+    return max(0, int(free / RESIDENT_BYTES))
+
+
+def device_wave_bytes(dev, width: int = 0, shares: int = 1, chain: bool = False) -> int:
     """Bytes of rows a wave may hold on ``dev``: ``BZ3_TPU_WAVE_MIB``,
-    else what ``MEM_SHARE`` of a card's memory holds at ``RESIDENT_BYTES``
-    a byte beside one forward BWT group's peak, or ``WAVE_BYTES`` on the
-    CPU.  A wave always takes at least one row."""
+    else ``card_wave_bytes`` on a card, or ``WAVE_BYTES`` on the CPU.  A
+    wave always takes at least one row."""
     env = _env_bytes("BZ3_TPU_WAVE_MIB")
     if env is not None:
         return env
     dev = torch.device(dev)
     if dev.type != "cuda":
         return WAVE_BYTES
-    free = _card(dev).total_memory * MEM_SHARE - BWT_PEAK_BYTES * bwt_group_bytes(dev)
-    return max(0, int(free / RESIDENT_BYTES))
+    return card_wave_bytes(dev, width, shares, chain)
 
 
-def wave_bytes(mesh) -> int:
-    """Bytes of rows a wave may hold on ``mesh``, a list of devices: the
-    sum of ``device_wave_bytes`` over its distinct devices.  Shares on
-    one device split its budget.  No output byte depends on it."""
-    return sum(map(device_wave_bytes, _devices(mesh)))
+def wave_bytes(mesh, width: int = 0, chain: bool = False) -> int:
+    """Bytes of rows a wave of rows up to ``width`` bytes wide may hold on
+    ``mesh``, a list of devices: the sum of ``device_wave_bytes`` over
+    its distinct devices, each at its count of shares.  Shares on one
+    device split its budget.  No output byte depends on it."""
+    shares = Counter(map(torch.device, mesh))
+    return sum(device_wave_bytes(d, width, n, chain) for d, n in shares.items())
+
+
+def oversize_block(block_size: int, device, chain: bool = False) -> bool:
+    """Whether blocks of ``block_size`` take the host-BWT hybrid on
+    ``device``: past ``BZ3_TPU_MAX_DEVICE_BLOCK_MIB`` where it is set, on
+    the card or under ``BZ3_TPU_FORCE_OVERSIZE=1`` (read as the JAX
+    package reads both, pipeline.py:472-481, its TPU being the card here,
+    with its cap ``FORCED_MAX_DEVICE_BLOCK_MIB`` when only forced); else,
+    on a card, when ``card_wave_bytes`` at its padded width (with the
+    device ``chain``'s group where it runs) cannot hold one row; never on
+    the CPU."""
+    dev = torch.device(device)
+    forced = _env_flag("BZ3_TPU_FORCE_OVERSIZE", "0")
+    cap = os.environ.get("BZ3_TPU_MAX_DEVICE_BLOCK_MIB")
+    if cap is not None or forced:
+        over = block_size > int(float(cap or FORCED_MAX_DEVICE_BLOCK_MIB) * MiB)
+        return over and (dev.type == "cuda" or forced)
+    width = _round_up(max(64, block_size), 256)
+    return dev.type == "cuda" and card_wave_bytes(dev, width, chain=chain) < width
 
 
 def wave_rows(mesh) -> int:
@@ -225,22 +317,29 @@ def bwt_row_groups(k: int, width: int, device) -> int:
     """Rows of a forward BWT group of a [k, width] wave on ``device``
     (the JAX package's ``_bwt_row_groups``, pipeline.py:95-112): at most
     ``BZ3_TPU_BWT_GROUP_ROWS`` rows when set, ``bwt_group_bytes`` of
-    rows, and what the BWT's packed int64 sort key holds
-    (``ops/device/bwt.py``); at least one."""
+    rows, what the BWT's packed int64 sort key holds, and under 2^31
+    positions, where its ranks are int32 (``ops/device/bwt.py``); at
+    least one."""
     cap = int(os.environ.get("BZ3_TPU_BWT_GROUP_ROWS", "0")) or k
     key = ((1 << 62) - 1) // max(1, width * (width + 1))
-    return max(1, min(k, cap, bwt_group_bytes(device) // max(1, width), key))
+    flat = ((1 << 31) - 1) // max(1, width)
+    return max(1, min(k, cap, bwt_group_bytes(device) // max(1, width), key, flat))
+
+
+def chain_row_groups(k: int, width: int, device) -> int:
+    """Rows of a group of the device chain of a [k, width] wave on
+    ``device``: ``chain_group_bytes`` of rows, and under 2^31 positions;
+    at least one."""
+    flat = ((1 << 31) - 1) // max(1, width)
+    return max(1, min(k, chain_group_bytes(device) // max(1, width), flat))
 
 
 def inverse_row_groups(k: int, width: int, device) -> int:
     """Rows of an inverse BWT group of a [k, width] wave on ``device``:
-    ``BZ3_TPU_INV_GROUP_MIB`` of rows, by default ``INV_GROUP_BYTES`` on
-    a card and the whole wave on the CPU, and no more than a forward
-    group (the JAX package's rule, pipeline.py:911-916)."""
-    env = _env_bytes("BZ3_TPU_INV_GROUP_MIB")
-    if env is None:
-        env = INV_GROUP_BYTES if torch.device(device).type == "cuda" else WAVE_BYTES
-    return min(bwt_row_groups(k, width, device), max(1, env // max(1, width)))
+    ``inverse_group_bytes`` of rows, and no more than a forward group
+    (the JAX package's rule, pipeline.py:911-916)."""
+    return min(bwt_row_groups(k, width, device),
+               max(1, inverse_group_bytes(device) // max(1, width)))
 
 
 def bwt_difficulty(b: bytes) -> float:
@@ -386,6 +485,58 @@ def _to_host(cols: dict) -> dict[str, list]:
     return out
 
 
+def chain_rle(orig, orig_lens, timer: StageTimer):
+    """CRC (K4) and RLE of raw rows [g, w] on their device, the first half
+    of the JAX package's ``encode_core_full`` (pipeline.py:134-181), RLE
+    kept only where it shrinks the row (src/libbz3.c:609-614).  Returns
+    (rows [g, w], lengths, CRCs, RLE lengths, RLE kept)."""
+    w = orig.shape[1]
+    with timer.stage("encode/crc"):
+        crc = crc32_cuda.crc32_batch(orig, orig_lens)
+    with timer.stage("encode/rle"):
+        r_out, r_lens = rle.rle_encode_batch(orig, orig_lens, w + 64)
+        use_rle = r_lens < orig_lens
+        cur = torch.where(use_rle[:, None], r_out[:, :w], orig)
+        return cur, torch.where(use_rle, r_lens, orig_lens), crc, r_lens, use_rle
+
+
+def chain_lzp(cur, cur_lens, timer: StageTimer):
+    """LZP (K5) of rows [K, w] on their device, kept only where it shrinks
+    the row (src/libbz3.c:615-621).  Returns (rows [K, w], lengths, LZP
+    lengths, LZP kept)."""
+    with timer.stage("encode/lzp"):
+        l_out, l_lens = lzp_cuda.lzp_encode(cur, cur_lens)
+        use_lzp = (l_lens > 0) & (l_lens < cur_lens)
+        cur = torch.where(use_lzp[:, None], l_out[:, : cur.shape[1]], cur)
+        return cur, torch.where(use_lzp, l_lens, cur_lens), l_lens, use_lzp
+
+
+def chain_unlzp(data, sbb, models, width: int, timer: StageTimer):
+    """un-LZP (K6) of rows [K, N] of ``sbb`` bytes under ``models`` on
+    their device, the first stage of the JAX package's
+    ``decode_core_full`` (pipeline.py:213-228).  Returns (rows [K,
+    width], lengths, ok): ok is False where the stage failed."""
+    with timer.stage("decode/lzp"):
+        has_lzp = (models & 2) != 0
+        l_out, l_lens = lzp_cuda.lzp_decode(data, torch.where(has_lzp, sbb, 0), width)
+        data = torch.nn.functional.pad(data, (0, width - data.shape[1]))
+        cur = torch.where(has_lzp[:, None], l_out, data)
+        return cur, torch.where(has_lzp, l_lens, sbb), ~has_lzp | (l_lens >= 0)
+
+
+def chain_unrle(cur, cur_lens, models, sizes, width: int, timer: StageTimer):
+    """un-RLE of rows [g, width] to ``sizes`` bytes under ``models`` on
+    their device.  Returns (rows [g, width], lengths, ok): ok is False
+    where the stage failed."""
+    with timer.stage("decode/rle"):
+        has_rle = (models & 4) != 0
+        r_in = torch.where(has_rle, cur_lens.clamp(min=0), 0)
+        r_out, r_ok = rle.rle_decode_batch(cur, r_in, sizes, width)
+        final = torch.where(has_rle[:, None], r_out, cur)
+        return (final, torch.where(has_rle, sizes, cur_lens).clamp(min=0),
+                ~has_rle | r_ok)
+
+
 class DevicePipeline:
     """Batched encoder/decoder bound to one block size and one device.
 
@@ -393,8 +544,9 @@ class DevicePipeline:
     paths of the module docstring; None reads ``BZ3_TPU_DEVICE_PREPASS``
     (default 0), ``BZ3_TPU_HOST_CRC`` (default 1) and
     ``BZ3_TPU_DEVICE_CRC_VERIFY`` (default 0).  ``oversize`` is set from
-    the block size as in the JAX package (pipeline.py:472-481), with "the
-    card" for its TPU; the three switches do not apply to it.
+    the block size by ``oversize_block``: on a card, whether the wave
+    planner's budget holds a row of it (with the chain's group under the
+    device prepass); the three switches do not apply to it.
 
     ``mesh`` (the devices a wave's rows spread over, sizing its waves
     through ``wave_rows`` and ``wave_bytes``) is ``[device]``; a sharded
@@ -432,10 +584,7 @@ class DevicePipeline:
         self.host_crc = host_crc
         self.device_crc_verify = device_crc_verify
         self.threads = threads or os.cpu_count() or 4
-        max_mib = float(os.environ.get("BZ3_TPU_MAX_DEVICE_BLOCK_MIB", "128"))
-        self.oversize = block_size > int(max_mib * MiB) and (
-            self.device.type == "cuda" or _env_flag("BZ3_TPU_FORCE_OVERSIZE", "0")
-        )
+        self.oversize = oversize_block(block_size, self.device, device_prepass)
         # Rows whose CM payload overflowed the wave's output width and
         # were encoded a second time at their true length.
         self.reencoded_rows = 0
@@ -452,7 +601,14 @@ class DevicePipeline:
                         self.timer)
 
     def _waves(self, items: list, size_of) -> list[list]:
-        return _waves(items, size_of, wave_rows(self.mesh), wave_bytes(self.mesh))
+        """Waves of ``items``, budgeted at the batch's widest padded row
+        (under the device prepass at least the block's, the chain's
+        decode width)."""
+        widest = _round_up(max(map(size_of, items), default=1), 256)
+        if self.device_prepass:
+            widest = max(widest, self.width)
+        return _waves(items, size_of, wave_rows(self.mesh),
+                      wave_bytes(self.mesh, widest, self.device_prepass))
 
     def _pool(self) -> ThreadPoolExecutor:
         host.crc32(b"")  # the host library loads here, not in the pool's threads
@@ -528,31 +684,30 @@ class DevicePipeline:
 
     def _encode_wave_device(self, wave: list, out: list[bytes]) -> None:
         """Raw rows: CRC, RLE and LZP on the device too (the JAX package's
-        ``encode_core_full``, pipeline.py:134-181).  Each pre-pass stage
-        is kept only where it shrinks the row (src/libbz3.c:609-621)."""
+        ``encode_core_full``, pipeline.py:134-181): ``chain_rle`` over
+        row groups of ``chain_row_groups``, each group's raw rows
+        uploaded in turn, into one wave of rows, then ``chain_lzp`` over
+        the wave (K5 runs one warp a row, all rows in one launch)."""
         t = self.timer
-        with t.stage("encode/h2d"):
-            orig, orig_lens = _upload([data for _, data in wave], self.device)
-        n = orig.shape[1]
-        with t.stage("encode/crc"):
-            crc = crc32_cuda.crc32_batch(orig, orig_lens)
-        with t.stage("encode/rle"):
-            r_out, r_lens = rle.rle_encode_batch(orig, orig_lens, n + 64)
-            use_rle = r_lens < orig_lens
-            cur = torch.where(use_rle[:, None], r_out[:, :n], orig)
-            cur_lens = torch.where(use_rle, r_lens, orig_lens)
-            del r_out
-        with t.stage("encode/lzp"):
-            l_out, l_lens = lzp_cuda.lzp_encode(cur, cur_lens)
-            use_lzp = (l_lens > 0) & (l_lens < cur_lens)
-            cur = torch.where(use_lzp[:, None], l_out[:, :n], cur)
-            cur_lens = torch.where(use_lzp, l_lens, cur_lens)
-            del l_out
-            sizes = cur_lens.tolist()
-            # BWT and CM need only the longest kept row's width
-            cur = cur[:, : _round_up(max(1, max(sizes)), 256)].contiguous()
-        meta = {"crc": crc, "model": use_lzp.int() * 2 + use_rle.int() * 4, "lzp": l_lens,
-                "rle": r_lens}
+        raws = [data for _, data in wave]
+        sizes = list(map(len, raws))
+        n = _round_up(max(sizes), 256)
+        cur = torch.zeros((len(raws), n), dtype=torch.uint8, device=self.device)
+        cols = defaultdict(list)
+        for s, e, w in _row_groups(sizes, chain_row_groups(len(raws), n, self.device), n):
+            with t.stage("encode/h2d"):
+                orig, orig_lens = _upload(raws[s:e], self.device)
+            cur[s:e, :w], *got = chain_rle(orig, orig_lens, t)
+            del orig
+            for k, v in zip(("len", "crc", "rle", "use_rle"), got):
+                cols[k].append(v)
+        cols = {k: torch.cat(v) for k, v in cols.items()}
+        cur, cur_lens, l_lens, use_lzp = chain_lzp(cur, cols["len"], t)
+        sizes = cur_lens.tolist()
+        # BWT and CM need only the longest kept row's width
+        cur = cur[:, : _round_up(max(1, max(sizes)), 256)].contiguous()
+        meta = {"crc": cols["crc"], "model": use_lzp.int() * 2 + cols["use_rle"].int() * 4,
+                "lzp": l_lens, "rle": cols["rle"]}
         self._assemble([i for i, _ in wave],
                        run_core(self._code_rows(cur, cur_lens, meta, t, sizes), t), out)
 
@@ -663,7 +818,7 @@ class DevicePipeline:
         if self.device_crc_verify and not self.device_prepass:
             with t.stage("decode/crc_verify"):
                 grps = _waves(list(range(len(blocks))), lambda i: len(finals[i]),
-                              wave_rows([self.device]), wave_bytes([self.device]))
+                              wave_rows([self.device]), wave_bytes([self.device], self.width))
                 for grp in grps:
                     crcs = crc32_cuda.crc32_batch(*_upload([finals[i] for i in grp], self.device))
                     for i, crc in zip(grp, crcs.tolist()):
@@ -800,35 +955,29 @@ class DevicePipeline:
 
     def _post_device(self, wave: list, span: range, blocks, data, sbb, finals: list[bytes],
                      want_crc: list[int]) -> None:
-        """un-LZP, un-RLE and the CRC on the device (the JAX package's
-        ``decode_core_full``, pipeline.py:213-228), then its checks in
-        its order (:950-973), block by block over ``span``: a literal's
-        host CRC; for a row, a failed stage is a CRC error, a length past
-        the block size a malformed header, then the CRC itself."""
+        """un-LZP (``chain_unlzp``, the wave in one K6 launch), un-RLE
+        (``chain_unrle`` over row groups of ``chain_row_groups``) and the
+        CRC on the device, then the JAX package's checks in its order
+        (:950-973), block by block over ``span``: a literal's host CRC;
+        for a row, a failed stage is a CRC error, a length past the block
+        size a malformed header, then the CRC itself."""
         t = self.timer
         width = self.width
         models = torch.tensor([r[1].model for r in wave], dtype=torch.int32).to(self.device)
         sizes = torch.tensor([blocks[r[0]][1] for r in wave], dtype=torch.int32).to(self.device)
-        with t.stage("decode/lzp"):
-            has_lzp = (models & 2) != 0
-            l_out, l_lens = lzp_cuda.lzp_decode(data, torch.where(has_lzp, sbb, 0), width)
-            data = torch.nn.functional.pad(data, (0, width - data.shape[1]))
-            cur = torch.where(has_lzp[:, None], l_out, data)
-            cur_lens = torch.where(has_lzp, l_lens, sbb)
-            lzp_ok = ~has_lzp | (l_lens >= 0)
-            del l_out, data
-        with t.stage("decode/rle"):
-            has_rle = (models & 4) != 0
-            r_in = torch.where(has_rle, cur_lens.clamp(min=0), 0)
-            r_out, r_ok = rle.rle_decode_batch(cur, r_in, sizes, width)
-            final = torch.where(has_rle[:, None], r_out, cur)
-            final_lens = torch.where(has_rle, sizes, cur_lens).clamp(min=0)
-            stage_ok = lzp_ok & (~has_rle | r_ok)
-            del r_out, cur
+        cur, cur_lens, lzp_ok = chain_unlzp(data, sbb, models, width, t)
+        final = torch.empty_like(cur)
+        final_lens, rle_ok = torch.empty_like(cur_lens), torch.empty_like(lzp_ok)
+        g = chain_row_groups(len(wave), width, self.device)
+        for s in range(0, len(wave), g):
+            e = min(len(wave), s + g)
+            final[s:e], final_lens[s:e], rle_ok[s:e] = chain_unrle(
+                cur[s:e], cur_lens[s:e], models[s:e], sizes[s:e], width, t)
+        del cur
         with t.stage("decode/crc_verify"):
             crc = crc32_cuda.crc32_batch(final, final_lens)
         with t.stage("decode/d2h"):
-            cols = _to_host({"len": final_lens, "crc": crc, "ok": stage_ok})
+            cols = _to_host({"len": final_lens, "crc": crc, "ok": lzp_ok & rle_ok})
             arr = final[:, : max(1, min(max(cols["len"]), width))].cpu().numpy()
         at = {r[0]: j for j, r in enumerate(wave)}
         with t.stage("decode/verify"):

@@ -71,13 +71,32 @@ JSON line:
              one launch on them the rows K3b gave back (K3a/K3b against
              K1/K2, whose body they share, timed in one call), and K3b
              at the full width must equal the plain decoder on a prefix;
-14. main_oversize - one 144 MiB block at -b 144, past the 128 MiB
-             device-block cap: the host-BWT hybrid (host SA-IS, K3a, K3c,
-             host inverse BWT), its launches timed as they run, the host
-             SA-IS held against the device BWT, and K3a and K3c at the
-             full width against the plain coders on a prefix; K3a's and
-             K3c's ns a bit step against K1's and K2's from main_b32;
-15. parity_parallel - P1 (the chain window scans, each mode and rate)
+14. main_oversize - one 40 MiB block (text, log lines) at -b 40 past a
+             device-block cap of 32 MiB set for the phase
+             (BZ3_TPU_MAX_DEVICE_BLOCK_MIB): the host-BWT hybrid (host
+             SA-IS, K3a, K3c, host inverse BWT), its launches timed as
+             they run, its stream equal to the default path's at -b 40;
+             the host SA-IS held against the device BWT, and K3a and K3c
+             at the full width against the plain coders on a prefix; K3a's
+             and K3c's ns a bit step against K1's and K2's from main_b32;
+15. main_wide - 4 blocks of 144 MiB (text and log lines cut from the
+             run's own pieces, no piece twice in a block) at -b 144
+             through ``compress_file`` / ``decompress_file``: the wave
+             path, not the hybrid, in one wave (K3a and K3b launched
+             ceil(steps / 16 Mi) times for all rows), the BWT and
+             inverse groups as planned, no row coded again, the first
+             row's payload against the plain encoder on a prefix; stage
+             times, MiB/s beside the hybrid's, peak memory;
+16. main_wide_prepass - main_wide's blocks on the device chain
+             (``device_prepass``): one wave, its RLE in the planned row
+             groups and one K5 and one K6 launch, the stream equal to
+             main_wide's, the round trip equal, peak device memory within
+             the planned share;
+17. wide_bwt - the forward and inverse BWT alone on one row of 256 MiB
+             and one of 511 MiB: seconds and peak bytes a byte,
+             inverse(forward(x)) == x, and the forward equal to the host
+             SA-IS at 256 MiB;
+18. parity_parallel - P1 (the chain window scans, each mode and rate)
              and P2 (the range pass) against their plain versions: the
              parallel CM encoder on the card and on the CPU over the
              same post-BWT hazard rows at seg 128 and 2048 and in the
@@ -85,7 +104,7 @@ JSON line:
              call on equal inputs, P2 again under an output cap; the
              card's runs under ``trace`` (torch.profiler), whose Chrome
              trace must name both kernels;
-16. main_parallel - BZ3_TPU_CM=parallel at -b 2: 16 blocks x 2 MiB of
+19. main_parallel - BZ3_TPU_CM=parallel at -b 2: 16 blocks x 2 MiB of
              text through ``compress_file`` / ``decompress_file``, P1
              and P2 timed launch by launch; the stream equal to the K1
              route's, no row coded again, the golden streams re-encoded
@@ -95,7 +114,7 @@ JSON line:
              and every P1 pass of the [16, N] encode against its plain
              version on the same card tensors, P2's payloads against
              the plain range pass on each row's first 4 KiB;
-17. main_sharded - main's 8 x 16 MiB at -b 16 through the sharded
+20. main_sharded - main's 8 x 16 MiB at -b 16 through the sharded
              engine, ``get_engine("sharded")`` (one share on one card),
              then through two shares of the card (two threads, two
              streams, 4 rows each): both streams equal to main's, one K1
@@ -106,17 +125,17 @@ JSON line:
              through the two shares (K4 in each), its stream equal to
              the host CRC's, and ``python -m bzip3_tpu_torch -e
              --engine sharded`` on those blocks, the same blocks;
-18. multihost - two processes over gloo on the card, each coding its
+21. multihost - two processes over gloo on the card, each coding its
              ``host_stripe`` of main's first 4 blocks, gathered to rank 0
              by ``gather_to_writer`` and equal to main's blocks; then one
              rank over NCCL (world size 1), at the same time,
              gathering main's blocks as rows on the card;
-19. dryrun  - ``dryrun_multichip(2, "cuda:0")``.
+22. dryrun  - ``dryrun_multichip(2, "cuda:0")``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a card, or outside a checkout of the repository, it
-exits non-zero before printing any result.  About 11 minutes in all.
+exits non-zero before printing any result.  About 12.5 minutes in all.
 """
 
 from __future__ import annotations
@@ -1293,15 +1312,21 @@ def phase_main_b32(card: str, data: bytes, prefix: int = 2048) -> dict:
     return out
 
 
-def phase_main_oversize(card: str, data: bytes, b32: dict, prefix: int = 2048) -> dict:
-    """One block of len(data) bytes, past the 128 MiB device-block cap,
-    through the stream API: the host-BWT hybrid with K3a and K3c, each
-    launch timed as it runs.  The host SA-IS is held against the device
-    BWT on the block's own post-prepass row; K3a's payload and K3c's
-    output at the full width against the plain encoder and decoder on
-    the row's first ``prefix`` symbols.  K3a's and K3c's ns a bit step
+def phase_main_oversize(card: str, data: bytes, b32: dict, prefix: int = 2048,
+                        cap_mib: int = 32) -> dict:
+    """One block of len(data) bytes through the stream API, past a
+    device-block cap of ``cap_mib`` set for the phase
+    (BZ3_TPU_MAX_DEVICE_BLOCK_MIB): the host-BWT hybrid with K3a and
+    K3c, each launch timed as it runs.  The same block through the
+    default path (the wave path, which takes every block size on an H100
+    80GB) must give the same stream.  The host SA-IS is held against the
+    device BWT on the block's own post-prepass row; K3a's payload and
+    K3c's output at the full width against the plain encoder and decoder
+    on the row's first ``prefix`` symbols.  K3a's and K3c's ns a bit step
     on the row against K1's and K2's in one launch in ``b32``."""
     import torch
+    from bzip3_tpu_torch import compress_file
+    from bzip3_tpu_torch.engines import DeviceEngine
     from bzip3_tpu_torch.ops import host
     from bzip3_tpu_torch.ops.device import cm, cm_cuda
     from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch
@@ -1309,9 +1334,19 @@ def phase_main_oversize(card: str, data: bytes, b32: dict, prefix: int = 2048) -
 
     bs = len(data)
     _require(os.environ.get("BZ3_TPU_FORCE_OVERSIZE", "0") != "1", "oversize forced")
-    with _LaunchTimes("bz3t_cm_encode_resume", "bz3t_cm_decode_resume") as lt:
+    _require(bs > cap_mib * MiB, (bs, cap_mib))
+    with _env(BZ3_TPU_MAX_DEVICE_BLOCK_MIB=str(cap_mib)), \
+            _LaunchTimes("bz3t_cm_encode_resume", "bz3t_cm_decode_resume") as lt:
         eng, comp, out = _round_trip(card, "main_oversize", data, bs, 1)
-    _require(eng._pipe(bs).oversize, "the pipeline did not take the oversize path")
+        _require(eng._pipe(bs).oversize, "the pipeline did not take the oversize path")
+    wave_eng = DeviceEngine("cuda")
+    _require(not wave_eng._pipe(bs).oversize, "the default path took the hybrid")
+    t0 = time.perf_counter()
+    twin = io.BytesIO()
+    compress_file(io.BytesIO(data), twin, bs, engine=wave_eng, batch_size=1)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    _require(twin.getvalue() == comp, "the hybrid's stream differs from the default path's")
     _require(out["stage_calls"].get("decode/crc_verify") == 1, "the CRC was not checked")
     [(hdr, pay)] = _payloads(comp, bs)
     _require(hdr.model & 2, f"LZP not kept: model {hdr.model}")
@@ -1362,7 +1397,9 @@ def phase_main_oversize(card: str, data: bytes, b32: dict, prefix: int = 2048) -
     _require(dec[0].tobytes() == u[:h], "K3c does not give back the row's first symbols")
     del pieces, d_pay
     out.update({
-        "block_mib": bs / MiB, "oversize": True, "model": hdr.model, "post_prepass_len": n,
+        "block_mib": bs / MiB, "oversize": True, "cap_mib": cap_mib,
+        "default_path_equal": True, "default_path_encode_s": twin_s,
+        "model": hdr.model, "post_prepass_len": n,
         "payload_len": len(pay), "launches_wanted": want, "host_sais_s": sais_s,
         "host_inverse_s": out["stages_s"]["decode/bwt"], "device_bwt_s": device_bwt_s,
         "device_bwt_peak_bytes": bwt_peak, "sais_equal_device_bwt": True,
@@ -1373,6 +1410,201 @@ def phase_main_oversize(card: str, data: bytes, b32: dict, prefix: int = 2048) -
         "k3a_over_k1": k3a_ms * 1e6 / (8 * n) / b32["ns_per_bit_step"]["k1"],
         "k3c_over_k2": k3c_ms * 1e6 / (8 * n) / b32["ns_per_bit_step"]["k2"],
     })
+    emit(out)
+    return out
+
+
+def wide_pool(data: bytes, pdata: bytes, fresh: bytes, bs: int) -> list[bytes]:
+    """The distinct pieces of ``bs`` bytes of text and log lines that the
+    run already holds: main's 8 text blocks, main_prepass's 3 of log
+    lines (at 0, 9 and 18) and main_wave's 16 fresh text blocks, 27 in
+    all (main_prepass's text blocks are main's first 4)."""
+    text = [data[i * bs : (i + 1) * bs] for i in range(8)]
+    text += [fresh[i * bs : (i + 1) * bs] for i in range(len(fresh) // bs)]
+    log = [pdata[i * bs : (i + 1) * bs] for i in range(4, 7)]
+    pool = text[:]
+    for j, piece in enumerate(log):
+        pool.insert(9 * j, piece)
+    return pool
+
+
+def wide_blocks(pool: list[bytes], blocks: int, per_block: int, stride: int = 7) -> bytes:
+    """``blocks`` blocks of ``per_block`` pieces of ``pool``: block j takes
+    pieces (stride * j + i) mod len(pool), so no piece repeats inside a
+    block and no two blocks are alike."""
+    _require(per_block <= len(pool) and stride * (blocks - 1) < len(pool), "pool too small")
+    return b"".join(pool[(stride * j + i) % len(pool)]
+                    for j in range(blocks) for i in range(per_block))
+
+
+def _relabel(piece: bytes, key: int) -> bytes:
+    """``piece`` with every byte xored with ``key``: its statistics kept,
+    none of its byte strings."""
+    return (np.frombuffer(piece, np.uint8) ^ np.uint8(key)).tobytes()
+
+
+def phase_main_wide(card: str, data: bytes, bs: int, over: dict,
+                    prefix: int = 2048) -> tuple[dict, bytes]:
+    """Blocks past 128 MiB on the wave path: len(data) // bs blocks of
+    ``bs`` bytes (text and log lines) through ``compress_file`` /
+    ``decompress_file`` in one batch.  No block takes the hybrid; the
+    rows form one wave, so K3a and K3b launch ceil(steps / 16 Mi) times
+    for all rows together (the longest row's padded width); round trip
+    equal, no row coded again.  The first row's payload must equal the
+    plain encoder on its first ``prefix`` symbols (the BWT of its
+    post-prepass row on the card).  Stage times, the BWT and inverse
+    groups, MiB/s and peak memory, beside the hybrid's MiB/s in
+    main_oversize.  (result line, compressed stream)"""
+    import torch
+    from bzip3_tpu_torch.ops.device import cm
+    from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch
+    from bzip3_tpu_torch.pipeline import bwt_row_groups, host_prepass, inverse_row_groups
+
+    blocks = len(data) // bs
+    with _LaunchTimes("bz3t_cm_encode_resume", "bz3t_cm_decode_resume") as lt:
+        eng, comp, out = _round_trip(card, "main_wide", data, bs, blocks)
+    pipe = eng._pipe(bs)
+    _require(not pipe.oversize, "main_wide took the host-BWT hybrid")
+    rows = [host_prepass(data[i * bs : (i + 1) * bs])[3] for i in range(blocks)]
+    n = len(rows[0])
+    width = -(-max(map(len, rows)) // 256) * 256
+    want = -(-width // cm.default_chunk_steps())
+    launches, calls = out["launches"], out["stage_calls"]
+    _require({k for k, v in launches.items() if v} == set(B32_PATH)
+             and launches["cm_encode_resume"] == launches["cm_decode_resume"] == want,
+             f"main_wide: launches {launches}, want {want} of K3a and K3b (one wave)")
+    (k3a_ms, na), (k3b_ms, nb) = lt.ms("bz3t_cm_encode_resume"), lt.ms("bz3t_cm_decode_resume")
+    _require(na == nb == want, f"timed {na} K3a and {nb} K3b launches, want {want}")
+    g = bwt_row_groups(blocks, width, pipe.device)
+    ig = inverse_row_groups(blocks, width, pipe.device)
+    _require(calls["encode/bwt"] == -(-blocks // g) and calls["decode/bwt"] == -(-blocks // ig),
+             f"main_wide: groups {calls}, planned {g} and {ig} rows")
+
+    payloads = _payloads(comp, bs)[:blocks]
+    hdr, pay = payloads[0]
+    row = torch.from_numpy(np.frombuffer(rows[0], np.uint8).copy())[None].cuda()
+    u, idx = bwt_forward_batch(row, torch.tensor([n], dtype=torch.int32).cuda())
+    _require(int(idx[0]) == hdr.bwt_idx, "main_wide: the first row's index differs")
+    head = u[:, :prefix].cpu()
+    del row, u
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p_out, p_len = cm.cm_encode_batch(head, torch.tensor([prefix], dtype=torch.int32))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    m = int(p_len[0]) - 4  # all but the flush
+    err = _row_diff(np.frombuffer(pay[:m], np.uint8), p_out[0, :m].numpy())
+    _require(err == 0, "K3a differs from the plain encoder on main_wide's first row")
+    bits = 8 * width
+    out.update({
+        "oversize": False, "waves": 1, "row_lens": list(map(len, rows)), "width": width,
+        "payload_lens": [len(p) for _, p in payloads],
+        "launches_wanted": want, "bwt_group_rows": g, "inverse_group_rows": ig,
+        "bwt_groups": calls["encode/bwt"], "inverse_groups": calls["decode/bwt"],
+        "k3a_ms": k3a_ms, "k3b_ms": k3b_ms, "timing": "CUDA events around each launch",
+        "ns_per_bit_step": {"k3a": k3a_ms * 1e6 / bits, "k3b": k3b_ms * 1e6 / bits},
+        "prefix": prefix, "k3a_prefix_max_abs_err": err, "k3a_plain_prefix_ms": plain_ms,
+        "hybrid_mib_s": [over["encode_mib_s"], over["decode_mib_s"]],
+        "over_hybrid": [out["encode_mib_s"] / over["encode_mib_s"],
+                        out["decode_mib_s"] / over["decode_mib_s"]],
+    })
+    emit(out)
+    return out, comp
+
+
+def phase_main_wide_prepass(card: str, data: bytes, bs: int, wide: dict, stream: bytes) -> dict:
+    """main_wide's blocks on the device chain (``BZ3_TPU_DEVICE_PREPASS=1``:
+    CRC, RLE and LZP on the card, its RLE in the planned row groups): the wave
+    path in one wave, K3a and K3b launched as in main_wide, one K5 and one
+    K6 launch for the wave, its stream equal to main_wide's, round trip
+    equal, no row coded again, peak device memory within ``MEM_SHARE``
+    of the card."""
+    import torch
+    from bzip3_tpu_torch.pipeline import MEM_SHARE, chain_row_groups
+
+    blocks = len(data) // bs
+    with _env(BZ3_TPU_DEVICE_PREPASS="1"):  # the switch as a deployment sets it
+        eng, comp, out = _round_trip(card, "main_wide_prepass", data, bs, blocks)
+    pipe = eng._pipe(bs)
+    _require(pipe.device_prepass, "main_wide_prepass: BZ3_TPU_DEVICE_PREPASS=1 was not read")
+    _require(not pipe.oversize, "main_wide_prepass took the hybrid")
+    _require(comp == stream, "main_wide_prepass: stream differs from main_wide's")
+    launches, calls = out["launches"], out["stage_calls"]
+    want = wide["launches_wanted"]
+    _require({k for k, v in launches.items() if v} == {"crc_lanes", "lzp_encode", "lzp_decode",
+                                                        *B32_PATH}
+             and launches["cm_encode_resume"] == launches["cm_decode_resume"] == want,
+             f"main_wide_prepass: launches {launches}, want {want} of K3a and K3b (one wave)")
+    g = chain_row_groups(blocks, pipe.width, pipe.device)
+    _require(calls["encode/rle"] == calls["decode/rle"] == -(-blocks // g)
+             and launches["lzp_encode"] == launches["lzp_decode"] == 1,
+             f"main_wide_prepass: RLE groups {calls}, planned {g} rows; one K5 and one K6 "
+             f"launch for the wave: {launches}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    _require(out["peak_device_bytes"] <= MEM_SHARE * total,
+             f"main_wide_prepass: peak {out['peak_device_bytes']} past the planned share")
+    out.update({"oversize": False, "identical_to_main_wide": True, "chain_group_rows": g,
+                "chain_groups": calls["encode/rle"], "peak_reserved_bytes":
+                torch.cuda.max_memory_reserved(), "total_memory": total})
+    emit(out)
+    return out
+
+
+def device_peak(fn, n: int):
+    """(result, seconds, peak bytes a byte of ``n``) of ``fn()`` on the
+    card: the peak of what it allocates over what was allocated before
+    it, its n-byte input counted, and the same of what the allocator
+    reserves ("allocated", "reserved")."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base, base_res = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return res, sec, {"allocated": (torch.cuda.max_memory_allocated() - base + n) / n,
+                      "reserved": (torch.cuda.max_memory_reserved() - base_res + n) / n}
+
+
+def phase_wide_bwt(card: str, pool: list[bytes], sizes=(256 * MiB, 511 * MiB),
+                   sais_at: int = 256 * MiB) -> dict:
+    """The forward and inverse BWT alone on one row of each of ``sizes``
+    bytes, cut from ``pool`` (its pieces in order, then pieces relabeled
+    by ``_relabel`` where the pool runs short): seconds and peak bytes a
+    byte of each; inverse(forward(x)) == x, and at ``sais_at`` the
+    forward equal to the host SA-IS."""
+    import torch
+    from bzip3_tpu_torch.ops import host
+    from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch, bwt_inverse_batch
+
+    res = {}
+    for n in sizes:
+        pieces = -(-n // len(pool[0]))
+        src = pool + [_relabel(p, 0xA5) for p in pool]
+        row = np.frombuffer(b"".join(src[:pieces]), np.uint8)[:n]
+        x = torch.from_numpy(row.copy())[None].cuda()
+        lens = torch.tensor([n], dtype=torch.int32).cuda()
+        (u, idx), fwd_s, fwd_peak = device_peak(lambda: bwt_forward_batch(x, lens), n)
+        back, inv_s, inv_peak = device_peak(lambda: bwt_inverse_batch(u, lens, idx), n)
+        _require(torch.equal(back, x), f"wide_bwt: inverse(forward(x)) != x at {n}")
+        del back, x
+        r = {"forward_s": fwd_s, "forward_peak_bytes_a_byte": fwd_peak["allocated"],
+             "forward_peak_reserved_bytes_a_byte": fwd_peak["reserved"],
+             "inverse_s": inv_s, "inverse_peak_bytes_a_byte": inv_peak["allocated"],
+             "inverse_peak_reserved_bytes_a_byte": inv_peak["reserved"], "round_trip": True}
+        if n == sais_at:
+            t0 = time.perf_counter()
+            hu, hidx = host.bwt_forward(row.tobytes())
+            r["host_sais_s"] = time.perf_counter() - t0
+            _require(hidx == int(idx[0]) and u[0].cpu().numpy().tobytes() == hu,
+                     f"wide_bwt: the device BWT differs from the host SA-IS at {n}")
+            r["equal_host_sais"] = True
+        del u
+        torch.cuda.empty_cache()
+        res[str(n)] = r
+    out = {"phase": "wide_bwt", "card": card, "rows": res}
     emit(out)
     return out
 
@@ -1746,10 +1978,10 @@ def phase_main_parallel(card: str, data: bytes, parity: dict, lat: dict, bs: int
     return out
 
 
-def phase_main_wave(card: str, data: bytes, pdata: bytes, stream: bytes, pstream: bytes,
-                    bs: int, fresh_blocks: int = 16, probe_n: int = MiB) -> dict:
+def phase_main_wave(card: str, data: bytes, pdata: bytes, fresh: bytes, stream: bytes,
+                    pstream: bytes, bs: int, probe_n: int = MiB) -> dict:
     """One wave that fills the card: main's 8 text blocks, main_prepass's
-    8 (text, log lines, sparse) and ``fresh_blocks`` of fresh seeded text
+    8 (text, log lines, sparse) and the blocks of ``fresh`` seeded text
     at -b 16 through ``compress_file`` / ``decompress_file`` in one batch.
     Its first 16 blocks must equal main's and main_prepass's; K1 and K2
     launch once each; no row is coded again.  Prints the stage times (the
@@ -1763,7 +1995,7 @@ def phase_main_wave(card: str, data: bytes, pdata: bytes, stream: bytes, pstream
     from bzip3_tpu_torch.pipeline import bwt_row_groups, wave_rows
     from bzip3_tpu_torch.ops.device.bwt import bwt_forward_batch
 
-    wdata = data[: 8 * bs] + pdata[: 8 * bs] + corpus(fresh_blocks * bs, seed=3)
+    wdata = data[: 8 * bs] + pdata[: 8 * bs] + fresh
     blocks = len(wdata) // bs
     _, comp, out = _round_trip(card, "main_wave", wdata, bs, blocks)
     got = _chunks(comp, bs)
@@ -2241,9 +2473,10 @@ def phase_surface(card: str, data: bytes, bs: int, blocks: int, stream: bytes) -
     return out
 
 
-def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict]:
+def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict, wide: dict) -> list[dict]:
     """K3a-K3c: times at [2, 32 Mi] (K3a, K3b; main_b32's own launches)
-    and at the oversize row (K3c), launches from those phases.  Beside the
+    and at the oversize row (K3c), launches from those phases; K3a's and
+    K3b's times and launches at main_wide's rows beside.  Beside the
     contract's bound: the serial bound (the longest row's bit steps at
     K1's or K2's measured step latency) and the state spill, each launch
     after the first loading and each launch before the last storing the
@@ -2289,6 +2522,18 @@ def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict) -> list[dict
             "ns_per_bit_step": ns_k3,
             "spill_bytes": spill, "spill_bound_ms": spill / PEAK_BYTES_PER_S * 1e3,
         })
+    # at main_wide's rows on the wave path: times, launches and bounds
+    pays = wide["payload_lens"]
+    for row, k, key, ns_bit in zip(rows, ("k3a", "k3b"), B32_PATH,
+                                   (ns["k1_ns_per_bit"], ns["k2_ns_per_bit"])):
+        lens = wide["row_lens"]
+        bound_ms, bound_by = _bound(sum(lens) + sum(pays) + 8 * len(lens),
+                                    OPS_PER_BIT * 8 * sum(lens))
+        row.update({"launches_main_wide": wide["launches"][key], "ms_main_wide": wide[f"{k}_ms"],
+                    "shape_main_wide": [wide["blocks"], wide["width"]],
+                    "ns_per_bit_step_main_wide": wide["ns_per_bit_step"][k],
+                    "bound_ms_main_wide": bound_ms, "bound_by_main_wide": bound_by,
+                    "serial_bound_ms_main_wide": 8 * max(lens) * ns_bit * 1e-6})
     rows[0]["launches_oversize"] = over["launches"]["cm_encode_resume"]
     rows[0]["ms_oversize"] = over["k3a_ms"]
     rows[0]["ns_per_bit_step_oversize"] = over["ns_per_bit_step"]["k3a"]
@@ -2332,7 +2577,7 @@ def _parallel_rows(ppar: dict, mpar: dict, resources: dict) -> list[dict]:
 
 def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: dict,
                  pshapes: dict, resume: dict, b32: dict, over: dict, resources: dict,
-                 surface: dict, ppar: dict, mpar: dict, wave: dict) -> dict:
+                 surface: dict, ppar: dict, mpar: dict, wave: dict, wide: dict) -> dict:
     """The kernels of the main paths: launches from the main phases
     (K1/K2 from the default path, K4-K6 from the device prepass chain,
     K3a-K3c from main_b32 and main_oversize, P1/P2 from main_parallel),
@@ -2411,7 +2656,7 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
                         "l2_round_trip_ns": pshapes["l2_round_trip_ns"],
                         "busiest_row": dict(zip(pshapes[f"{k}_stats"]["cols"], st[busiest]))})
         rows.append(row)
-    rows[2:2] = _resume_rows(parity, resume, b32, over)
+    rows[2:2] = _resume_rows(parity, resume, b32, over, wide)
     # the surface phase's launches (its own path), and K1/K2/K4 at one row
     one = surface["block_api"]
     for row in rows:
@@ -2462,18 +2707,26 @@ def main() -> int:
     pdata = data[: 4 * bs] + log_corpus(3 * bs, seed=1) + sparse_block(bs, seed=2)
     pmain, pstream = phase_main_prepass(smi, pdata, bs, blocks)
     pshapes = phase_prepass_shapes(smi, pdata, bs, blocks, lat)
-    wave = phase_main_wave(smi, data, pdata, main_stream, pstream, bs)
+    fresh = corpus(16 * bs, seed=3)
+    wave = phase_main_wave(smi, data, pdata, fresh, main_stream, pstream, bs)
     resume = phase_parity_resume(smi)
     log = pdata[4 * bs : 7 * bs]  # 48 MiB of log lines
     b32 = phase_main_b32(smi, data[: 2 * bs] + log[: 2 * bs])
-    over = phase_main_oversize(smi, data[: 6 * bs] + log, b32)
+    # one 40 MiB block of text and log lines (LZP kept) past a cap of 32 MiB
+    over = phase_main_oversize(smi, data[: 24 * MiB] + log[: 16 * MiB], b32)
+    pool = wide_pool(data, pdata, fresh, bs)
+    wide_data = wide_blocks(pool, 4, 9)
+    wide, wide_stream = phase_main_wide(smi, wide_data, 144 * MiB, over)
+    phase_main_wide_prepass(smi, wide_data, 144 * MiB, wide, wide_stream)
+    del wide_data, wide_stream
+    phase_wide_bwt(smi, pool)
     ppar = phase_parity_parallel(smi)
     mpar = phase_main_parallel(smi, data[: 16 * 2 * MiB], parity, lat)
     phase_main_sharded(smi, data, bs, blocks, main_stream)
     phase_multihost(smi, data, bs, main_stream)
     phase_dryrun(smi)
     emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over,
-                      built["resources"], surface, ppar, mpar, wave))
+                      built["resources"], surface, ppar, mpar, wave, wide))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -88,27 +88,35 @@ using std::min;
 
 struct EmuBarrier {
     std::mutex mu;
-    std::condition_variable cv;
     int arrived = 0, expect = -1;
-    long gen = 0;
+    std::atomic<long> gen{0};
     void arrive(int count, bool wait) {
-        std::unique_lock<std::mutex> lk(mu);
-        if (expect >= 0 && expect != count) {
-            fprintf(stderr, "emu: barrier count %d, expected %d\n", count, expect);
-            abort();
+        long g;
+        {
+            std::lock_guard<std::mutex> lk(mu);
+            if (expect >= 0 && expect != count) {
+                fprintf(stderr, "emu: barrier count %d, expected %d\n", count, expect);
+                abort();
+            }
+            expect = count;
+            g = gen.load(std::memory_order_relaxed);
+            if (++arrived == count) {
+                arrived = 0;
+                expect = -1;
+                gen.store(g + 1, std::memory_order_release);
+                return;
+            }
         }
-        expect = count;
-        const long g = gen;
-        if (++arrived == count) {
-            arrived = 0;
-            expect = -1;
-            ++gen;
-            cv.notify_all();
-            return;
-        }
-        if (wait && !cv.wait_for(lk, std::chrono::seconds(20), [&] { return gen != g; })) {
-            fprintf(stderr, "emu: barrier deadlock\n");
-            abort();
+        if (!wait) return;
+        // wait by yielding: a condition variable's wake-ups take each of
+        // the block's threads through the mutex again, one at a time
+        const auto t0 = std::chrono::steady_clock::now();
+        for (long k = 1; gen.load(std::memory_order_acquire) == g; ++k) {
+            std::this_thread::yield();
+            if (k % 4096 == 0 && std::chrono::steady_clock::now() - t0 > std::chrono::seconds(20)) {
+                fprintf(stderr, "emu: barrier deadlock\n");
+                abort();
+            }
         }
     }
 };

@@ -56,17 +56,34 @@ def port_blocks(engine, blocks):
     return engine.encode_blocks(blocks, BS)
 
 
+def _oversize_cases(text_data) -> list[bytes]:
+    """tests/test_pipeline.py's cases of the forced oversize route at 1 KiB."""
+    rng = np.random.default_rng(11)
+    return [
+        text_data[:BS],
+        b"ab" * (BS // 2),
+        b"x" * 40,  # literal path
+        bytes(rng.integers(0, 256, BS, dtype=np.uint8)),
+        text_data[BS : BS + 700],
+    ]
+
+
 @pytest.fixture(scope="module")
-def jax_full(blocks, port_blocks):
-    """The JAX full-device chain once: its encode of the blocks, and its
-    decode of the port's blocks."""
+def jax_full(blocks, port_blocks, text_data):
+    """The JAX full-device chain once: its encode of the blocks, its
+    decode of the port's blocks, and its encode of the oversize cases
+    (filled up with the last blocks to the blocks' batch of 8, one wave
+    of the shape the blocks compiled)."""
+    cases = _oversize_cases(text_data)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("BZ3_TPU_DEVICE_PREPASS", "1")
         pipe = JaxPipeline(BS)
         assert pipe._full_cores()
         enc = pipe.encode_blocks(blocks)
         dec = pipe.decode_blocks([(e, len(b)) for e, b in zip(port_blocks, blocks)])
-    return enc, dec
+        assert len(cases) <= len(blocks)
+        enc_cases = pipe.encode_blocks(cases + blocks[len(cases) :])[: len(cases)]
+    return enc, dec, enc_cases
 
 
 @pytest.fixture(scope="module")
@@ -152,13 +169,33 @@ def prepass_blocks(prepass_engine, blocks):
 def test_device_prepass_matches_jax_full_chain(
     prepass_engine, prepass_blocks, port_blocks, jax_full, blocks
 ):
-    jax_enc, jax_dec = jax_full
+    jax_enc, jax_dec, _ = jax_full
     assert prepass_blocks == jax_enc == port_blocks
     models = {parse_block_header(b).model for b in prepass_blocks}
     assert {2, 4} <= {m & 6 for m in models}  # LZP and RLE each kept somewhere
     assert jax_dec == blocks  # the JAX chain's decode of these same blocks
     assert prepass_engine.decode_blocks([(e, len(b)) for e, b in zip(jax_enc, blocks)], BS) == blocks
     assert prepass_engine.reencoded_rows == 0
+
+
+def test_device_prepass_chain_groups(monkeypatch, prepass_blocks, blocks):
+    """The device chain's RLE in row groups of one row (a group's budget
+    of one block's bytes), its LZP over the wave, gives the same blocks,
+    and decodes them."""
+    from bzip3_tpu_torch import pipeline
+
+    monkeypatch.setenv("BZ3_TPU_BWT_GROUP_MIB", str(BS / (1 << 20)))
+    calls = []
+    for name in ("chain_rle", "chain_lzp", "chain_unlzp", "chain_unrle"):
+        fn = getattr(pipeline, name)
+        monkeypatch.setattr(pipeline, name,
+                            lambda *a, fn=fn, name=name: calls.append((name, len(a[0]))) or fn(*a))
+    eng = DeviceEngine(device="cpu", device_prepass=True)
+    assert eng.encode_blocks(blocks, BS) == prepass_blocks
+    assert eng.decode_blocks([(e, len(b)) for e, b in zip(prepass_blocks, blocks)], BS) == blocks
+    coded = sum(len(b) >= 64 for b in blocks)
+    assert calls == ([("chain_rle", 1)] * coded + [("chain_lzp", coded), ("chain_unlzp", coded)]
+                     + [("chain_unrle", 1)] * coded)
 
 
 def test_device_crc_switches_keep_the_default_bytes(port_blocks, blocks):
@@ -236,14 +273,7 @@ def test_literal_crc_error_when_headers_are_sound(bad_literal, prepass, crc_veri
 def oversize(text_data):
     """The forced oversize route at 1 KiB blocks (tests/test_pipeline.py's
     cases), its blocks and their decode."""
-    rng = np.random.default_rng(11)
-    cases = [
-        text_data[:BS],
-        b"ab" * (BS // 2),
-        b"x" * 40,  # literal path
-        bytes(rng.integers(0, 256, BS, dtype=np.uint8)),
-        text_data[BS : BS + 700],
-    ]
+    cases = _oversize_cases(text_data)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("BZ3_TPU_MAX_DEVICE_BLOCK_MIB", "0.0005")
         mp.setenv("BZ3_TPU_FORCE_OVERSIZE", "1")
@@ -260,6 +290,21 @@ def test_oversize_route_matches_the_oracle_codec(oversize):
     assert dec == cases
     assert pipe.reencoded_rows == 0
     assert not DevicePipeline(BS, device="cpu").oversize  # only when forced off the card
+
+
+def test_default_route_equals_forced_hybrid_and_jax(oversize, jax_full):
+    """The oversize cases through the default path (the wave path) at the
+    same block size: the forced hybrid's blocks, the JAX DevicePipeline's
+    (its full chain, whose blocks are its default path's:
+    tests/test_pipeline.py), and back."""
+    _, cases, enc, _ = oversize
+    pipe = DevicePipeline(BS, device="cpu")
+    assert not pipe.oversize
+    got = pipe.encode_blocks(cases)
+    assert got == enc
+    assert got == jax_full[2]
+    assert pipe.decode_blocks([(e, len(b)) for e, b in zip(got, cases)]) == cases
+    assert pipe.reencoded_rows == 0
 
 
 def test_oversize_corrupted_payload_raises(oversize):

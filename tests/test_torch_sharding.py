@@ -126,10 +126,13 @@ def test_wave_budget_counts_distinct_devices(monkeypatch):
         multi_processor_count=132, total_memory=85_045_846_016))
     cuda = [torch.device("cuda", i) for i in range(3)]
     w = pipeline.device_wave_bytes(cuda[0])
+    # two shares of one card split its budget, beside a BWT group each
+    w2 = pipeline.device_wave_bytes(cuda[0], shares=2)
+    assert w2 == pipeline.card_wave_bytes(cuda[0], shares=2) < w
     assert wave_bytes(cuda[:1]) == w
     assert wave_bytes(cuda) == 3 * w
-    assert wave_bytes([cuda[0], cuda[0]]) == w  # two shares of one card split its budget
-    assert wave_bytes([cuda[0], cuda[1], cuda[1], cuda[2]]) == 3 * w
+    assert wave_bytes([cuda[0], cuda[0]]) == w2
+    assert wave_bytes([cuda[0], cuda[1], cuda[1], cuda[2]]) == 2 * w + w2
     assert wave_bytes(["cpu"] * 8) == pipeline.WAVE_BYTES
     assert DevicePipeline(BS, device="cpu").mesh == [torch.device("cpu")]
 
