@@ -4,7 +4,8 @@ CXX ?= g++
 CXXFLAGS ?= -O3 -march=native -fPIC -shared -pthread
 PY ?= python
 
-.PHONY: all native test test-chip roundtrip bench clean cloc fuzz-native fuzz-py ci-local
+.PHONY: all native test test-chip roundtrip bench clean cloc fuzz-native fuzz-py ci-local \
+	roundtrip-torch fuzz-py-torch fuzz-host-torch sanitize-torch sanitize-emu-torch
 
 all: native
 
@@ -58,6 +59,47 @@ ci-local: native test roundtrip fuzz-py
 	$(PY) examples/hl_api.py
 	$(MAKE) fuzz-native FUZZ_ITERS=20000
 	@echo ci-local OK
+
+# --- the PyTorch/CUDA port (bzip3_tpu_torch) ---------------------------
+# CPU lanes (.github/workflows/ci_torch.yml calls these targets); the
+# device engine's CPU versions are too slow for volume, so the CPU lanes
+# fuzz the port's host C++ engine and hold it to the oracle and to the
+# pipeline, and the card runs the device engine (chip_smoke.py's harden).
+
+roundtrip-torch:
+	mkdir -p _build
+	$(PY) -m bzip3_tpu_torch -e -b 1 --engine native --device cpu -c SURVEY.md > _build/bz3t_torch_rt.bz3
+	$(PY) -m bzip3_tpu_torch -d --engine native --device cpu -c _build/bz3t_torch_rt.bz3 | cmp - SURVEY.md
+	@echo roundtrip-torch OK
+
+# The JAX fuzz-py volumes, through the port's native engine on the CPU.
+fuzz-py-torch:
+	FUZZ_ENGINE=native $(PY) examples/torch_fuzz_round_trip.py 0 400 --device cpu
+	$(PY) examples/torch_fuzz_decode_block.py 0 800 --device cpu --engine native
+	$(PY) examples/torch_fuzz_decompress.py 0 500 --device cpu --engine native
+	$(PY) examples/torch_differential_engines.py 0 10 --device cpu --routes none
+
+# ASan/UBSan lane of the port's host C++ (bzip3_tpu_torch/csrc/fuzz_host.cpp),
+# then the pthread pool under TSan on fewer iterations.
+FUZZ_HOST_ITERS ?= 20000
+TORCH_CSRC = bzip3_tpu_torch/csrc
+TORCH_HOST = $(TORCH_CSRC)/fuzz_host.cpp $(TORCH_CSRC)/host_stages.cpp \
+	$(TORCH_CSRC)/host_bwt.cpp $(TORCH_CSRC)/host_codec.cpp
+fuzz-host-torch:
+	mkdir -p _build
+	$(CXX) -O1 -g -fsanitize=address,undefined -fno-sanitize-recover=all -pthread \
+		$(TORCH_HOST) -o _build/fuzz_host
+	_build/fuzz_host $(FUZZ_HOST_ITERS)
+	$(CXX) -O1 -g -fsanitize=thread -pthread $(TORCH_HOST) -o _build/fuzz_host_tsan
+	_build/fuzz_host_tsan 2000
+
+# The card's sanitizer lane (compute-sanitizer; needs an NVIDIA card), and
+# the kernels' CUDA source under ASan/UBSan in the host emulation (the CPU).
+sanitize-torch:
+	$(PY) scripts/torch_sanitize.py --out _build/sanitize.json
+
+sanitize-emu-torch:
+	$(PY) scripts/torch_sanitize.py --emulated
 
 clean:
 	rm -rf _build __pycache__ bzip3_tpu/__pycache__

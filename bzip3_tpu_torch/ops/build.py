@@ -12,15 +12,23 @@ Two shared libraries, each with a plain C interface loaded by ctypes:
   with ``nvcc`` for ``sm_90a`` (Hopper).  Each ``.cu`` compiles to its
   own object in parallel, then one link.
 
-Both go to ``_build/`` at the root of the checkout (listed in
-``.gitignore``) and are rebuilt when a source or header is newer than
-the library.  A build or load failure raises: nothing falls back.
+Where they go (``BUILD_ROOT``): in a checkout of the repository (the
+package's parent holds ``pyproject.toml``), ``_build/`` at its root
+(listed in ``.gitignore``).  In an installed copy, a per-user cache
+directory, ``$BZ3_TORCH_CACHE``, else ``$XDG_CACHE_HOME/bzip3_tpu_torch``
+or ``~/.cache/bzip3_tpu_torch``, one subdirectory for each installed
+copy; never the installed package.  An installed copy loads the host
+library that ``pip install`` built into ``_native_lib/`` of the package
+(``setup.py``) and builds only what it lacks.  A library is rebuilt when
+a source or header is newer than it.  A build or load failure raises:
+nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import glob
+import hashlib
 import os
 import re
 import shutil
@@ -29,7 +37,24 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "_build")
+# the host library ``pip install`` builds into an installed copy (setup.py)
+PREBUILT_HOST = os.path.join(_PKG, "_native_lib", "libbz3_host.so")
+
+
+def in_checkout(pkg: str = _PKG) -> bool:
+    """Whether the package lies in a checkout of the repository."""
+    return os.path.exists(os.path.join(os.path.dirname(pkg), "pyproject.toml"))
+
+
+def cache_root(pkg: str = _PKG) -> str:
+    """The per-user build directory of an installed copy at ``pkg``."""
+    base = os.environ.get("BZ3_TORCH_CACHE") or os.path.join(
+        os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache"),
+        "bzip3_tpu_torch")
+    return os.path.join(base, hashlib.sha256(os.path.abspath(pkg).encode()).hexdigest()[:16])
+
+
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "_build") if in_checkout() else cache_root()
 KERNEL_DIR = os.path.join(BUILD_ROOT, "torch_kernels")
 HOST_DIR = os.path.join(BUILD_ROOT, "torch_host")
 
@@ -112,15 +137,18 @@ def _build_host(so: str, sources: list[str]) -> None:
     os.replace(so + tag, so)
 
 
-def _load(name: str, so: str, sources: list[str], builder, headers=()) -> ctypes.CDLL:
+def _load(name: str, so: str, sources: list[str], compile_fn, headers=()) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         if not sources:
             raise BuildError(f"no sources for {name} under {CSRC}")
-        if _stale(so, [*sources, *headers]):
-            builder(so, sources)
+        if so != PREBUILT_HOST and _stale(so, [*sources, *headers]):
+            try:
+                compile_fn(so, sources)
+            except OSError as e:  # an unwritable build directory
+                raise BuildError(f"cannot build {so}: {e}") from e
         try:
             lib = ctypes.CDLL(so)
         except OSError as e:
@@ -130,13 +158,12 @@ def _load(name: str, so: str, sources: list[str], builder, headers=()) -> ctypes
 
 
 def load_host() -> ctypes.CDLL:
-    """The host stage library (g++), built on first use."""
-    return _load(
-        "host",
-        os.path.join(HOST_DIR, "libbz3_host.so"),
-        HOST_SOURCES,
-        _build_host,
-    )
+    """The host stage library (g++), built on first use; in an installed
+    copy the one ``pip install`` built, where it is there."""
+    so = os.path.join(HOST_DIR, "libbz3_host.so")
+    if not in_checkout() and os.path.exists(PREBUILT_HOST):
+        so = PREBUILT_HOST
+    return _load("host", so, HOST_SOURCES, _build_host)
 
 
 def load_kernels() -> ctypes.CDLL:

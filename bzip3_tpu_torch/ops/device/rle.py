@@ -151,8 +151,13 @@ def rle_decode_batch(data: torch.Tensor, in_lens: torch.Tensor, out_lens: torch.
     has_term = hdr_term <= in_lens[:, None] - 1
     term_byte = data.gather(1, hdr_term.clamp(max=m - 1)).long()
     c255 = (hdr_term - pos - 1).clamp(min=0)
-    run_total = torch.where(has_term, 255 * c255 + term_byte + 1, 0)
-    del hdr_term, has_term, term_byte, c255
+    # A stream that ends inside a run's length: mrled adds 255 for each of
+    # the k 255s, then the last one again as its terminator (255k + 256);
+    # a header that is the stream's last byte runs 0 bytes.
+    k_open = (in_lens[:, None] - 1 - pos).clamp(min=0)
+    run_total = torch.where(has_term, 255 * c255 + term_byte + 1,
+                            torch.where(k_open > 0, 255 * k_open + 256, 0))
+    del hdr_term, has_term, term_byte, c255, k_open
     emit = torch.where(is_literal, 1, torch.where(is_header, run_total, 0))
     csum = torch.cumsum(emit, dim=1)  # through each position, inclusive
     total = csum[:, -1]

@@ -37,33 +37,43 @@ JSON line:
              each damaged block's bytes held against the same chain on
              the host C++ and the damaged LZP size driving K3b, and the
              native and hybrid engines, their streams equal to main's;
-8. parity_prepass - K4 (CRC lane scan), K5 (LZP encode) and K6 (LZP
+8. harden  - the hardening harnesses of ``examples/torch_*.py`` on the
+             card with fixed seeds (``phase_harden``): the engine
+             differential over the default, device-prepass and parallel
+             routes, the round-trip fuzz, ~600 damaged blocks through
+             ``Bz3Codec`` and three batched routes (K6 on malformed LZP
+             streams, K3a/K3c on the forced hybrid), 200 damaged frames,
+             one damaged block decoded by K3b on the wave path, every
+             outcome held to the native engine; then main's first block
+             round-tripped again, and ``bin/torch/bz3cat`` and ``bz3grep``
+             on main's stream;
+9. parity_prepass - K4 (CRC lane scan), K5 (LZP encode) and K6 (LZP
              decode) against their plain versions on CPU copies of the
              same rows of <= 4 KiB (for K5/K6 also every hazard of their
              windows, ``lzp_hazards``, and K6 cut at max_out), byte for
              byte (K4 at three lane counts), K4's CRCs against the host
              C++, and each kernel's time a byte on one row;
-9. main_prepass - the device prepass chain: 8 blocks x 16 MiB (text,
+10. main_prepass - the device prepass chain: 8 blocks x 16 MiB (text,
              log lines where LZP fires, a sparse block where RLE fires)
              through ``compress_file`` / ``decompress_file`` with
              ``device_prepass=True``; the stream must equal the default
              path's, with LZP and RLE each kept on some block;
-10. prepass_shapes - K4, K5 and K6 on that phase's own [8, 16 Mi] rows,
+11. prepass_shapes - K4, K5 and K6 on that phase's own [8, 16 Mi] rows,
              timed, each checked in full against the host C++ (and K4
              with the lane combine, as encode/crc runs it); K5/K6's
              windows and events of each row, their bounds by bytes and
              by the L2 round trip;
-11. main_wave - one wave that fills the card: main's 8 blocks, main_prepass's
+12. main_wave - one wave that fills the card: main's 8 blocks, main_prepass's
              8 and 16 blocks of fresh seeded text (32 x 16 MiB) through
              ``compress_file`` / ``decompress_file`` in one batch at -b 16:
              blocks 0-15 equal to main's and main_prepass's, one K1 and
              one K2 launch, the BWT and inverse groups, the host pool's
              waits and MiB/s; then K1 and K2 at [1, 1 Mi] and [SMs, 1 Mi]
              on post-BWT rows, and their ratio;
-12. parity_resume - K3a, K3b and K3c (the resumable CM kernels) against
+13. parity_resume - K3a, K3b and K3c (the resumable CM kernels) against
              their plain versions on CPU copies of the same rows, in
              launches of 256 steps, byte for byte, and against K1/K2;
-13. main_b32 - the device path at -b 32: a text block and a log block
+14. main_b32 - the device path at -b 32: a text block and a log block
              of 32 MiB through ``compress_file`` / ``decompress_file``,
              CM-coded by K3a/K3b in two launches of 16 Mi steps, each
              launch timed with CUDA events as it runs; then K1 in one
@@ -71,7 +81,7 @@ JSON line:
              one launch on them the rows K3b gave back (K3a/K3b against
              K1/K2, whose body they share, timed in one call), and K3b
              at the full width must equal the plain decoder on a prefix;
-14. main_oversize - one 40 MiB block (text, log lines) at -b 40 past a
+15. main_oversize - one 40 MiB block (text, log lines) at -b 40 past a
              device-block cap of 32 MiB set for the phase
              (BZ3_TPU_MAX_DEVICE_BLOCK_MIB): the host-BWT hybrid (host
              SA-IS, K3a, K3c, host inverse BWT), its launches timed as
@@ -79,7 +89,7 @@ JSON line:
              the host SA-IS held against the device BWT, and K3a and K3c
              at the full width against the plain coders on a prefix; K3a's
              and K3c's ns a bit step against K1's and K2's from main_b32;
-15. main_wide - 4 blocks of 144 MiB (text and log lines cut from the
+16. main_wide - 4 blocks of 144 MiB (text and log lines cut from the
              run's own pieces, no piece twice in a block) at -b 144
              through ``compress_file`` / ``decompress_file``: the wave
              path, not the hybrid, in one wave (K3a and K3b launched
@@ -87,16 +97,16 @@ JSON line:
              inverse groups as planned, no row coded again, the first
              row's payload against the plain encoder on a prefix; stage
              times, MiB/s beside the hybrid's, peak memory;
-16. main_wide_prepass - main_wide's blocks on the device chain
+17. main_wide_prepass - main_wide's blocks on the device chain
              (``device_prepass``): one wave, its RLE in the planned row
              groups and one K5 and one K6 launch, the stream equal to
              main_wide's, the round trip equal, peak device memory within
              the planned share;
-17. wide_bwt - the forward and inverse BWT alone on one row of 256 MiB
+18. wide_bwt - the forward and inverse BWT alone on one row of 256 MiB
              and one of 511 MiB: seconds and peak bytes a byte,
              inverse(forward(x)) == x, and the forward equal to the host
              SA-IS at 256 MiB;
-18. parity_parallel - P1 (the chain window scans, each mode and rate)
+19. parity_parallel - P1 (the chain window scans, each mode and rate)
              and P2 (the range pass) against their plain versions: the
              parallel CM encoder on the card and on the CPU over the
              same post-BWT hazard rows at seg 128 and 2048 and in the
@@ -104,7 +114,7 @@ JSON line:
              call on equal inputs, P2 again under an output cap; the
              card's runs under ``trace`` (torch.profiler), whose Chrome
              trace must name both kernels;
-19. main_parallel - BZ3_TPU_CM=parallel at -b 2: 16 blocks x 2 MiB of
+20. main_parallel - BZ3_TPU_CM=parallel at -b 2: 16 blocks x 2 MiB of
              text through ``compress_file`` / ``decompress_file``, P1
              and P2 timed launch by launch; the stream equal to the K1
              route's, no row coded again, the golden streams re-encoded
@@ -114,7 +124,7 @@ JSON line:
              and every P1 pass of the [16, N] encode against its plain
              version on the same card tensors, P2's payloads against
              the plain range pass on each row's first 4 KiB;
-20. main_sharded - main's 8 x 16 MiB at -b 16 through the sharded
+21. main_sharded - main's 8 x 16 MiB at -b 16 through the sharded
              engine, ``get_engine("sharded")`` (one share on one card),
              then through two shares of the card (two threads, two
              streams, 4 rows each): both streams equal to main's, one K1
@@ -125,17 +135,17 @@ JSON line:
              through the two shares (K4 in each), its stream equal to
              the host CRC's, and ``python -m bzip3_tpu_torch -e
              --engine sharded`` on those blocks, the same blocks;
-21. multihost - two processes over gloo on the card, each coding its
+22. multihost - two processes over gloo on the card, each coding its
              ``host_stripe`` of main's first 4 blocks, gathered to rank 0
              by ``gather_to_writer`` and equal to main's blocks; then one
              rank over NCCL (world size 1), at the same time,
              gathering main's blocks as rows on the card;
-22. dryrun  - ``dryrun_multichip(2, "cuda:0")``.
+23. dryrun  - ``dryrun_multichip(2, "cuda:0")``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a card, or outside a checkout of the repository, it
-exits non-zero before printing any result.  About 12.5 minutes in all.
+exits non-zero before printing any result.  About 16 minutes in all.
 """
 
 from __future__ import annotations
@@ -2473,6 +2483,188 @@ def phase_surface(card: str, data: bytes, bs: int, blocks: int, stream: bytes) -
     return out
 
 
+HARDEN_DIR = os.path.join(ROOT, "_build", "harden")
+EXAMPLES = os.path.join(ROOT, "examples")
+HARDEN_SEED = 13
+# the kernels the harden phase must launch (K3c: the forced hybrid)
+HARDEN_PATH = ("cm_encode", "cm_decode", "cm_encode_resume", "cm_decode_resume",
+               "cm_decode_stream", "crc_lanes", "lzp_encode", "lzp_decode", "chain_windows",
+               "range_pass")
+# the size before the BWT given to harden's damaged wide block: past one
+# launch of 16 Mi steps, so that K3b decodes it in two
+WIDE_SBB = (16 << 20) + 4096
+
+
+def _wrapper(name: str, args: list[str], stdout) -> subprocess.Popen:
+    """``bin/torch/<name> args`` on the card (the CLI's default engine and
+    device), its output to ``stdout``."""
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "BZ3_ENGINE",
+                                                             "BZ3_DEVICE")}
+    env.update(PYTHONPATH=ROOT,
+               PATH=os.path.dirname(sys.executable) + os.pathsep + env.get("PATH", ""))
+    return subprocess.Popen(["sh", os.path.join(ROOT, "bin", "torch", name), *args], cwd=ROOT,
+                            env=env, stdout=stdout, stderr=subprocess.PIPE)
+
+
+def _wide_damaged(chunks: list[tuple[int, bytes]]) -> tuple[bytes, int]:
+    """Main's first block whose header has an LZP or RLE size, with that
+    size (the size before the BWT) set to ``WIDE_SBB`` and the middle byte
+    of its payload flipped: (block, orig_size)."""
+    import struct
+    from bzip3_tpu_torch.models.block_codec import parse_block_header
+
+    j = next((i for i, (_, b) in enumerate(chunks) if parse_block_header(b).model & 6), None)
+    _require(j is not None, "no block of main's stream has an LZP or RLE size")
+    b = bytearray(chunks[j][1])
+    hdr = parse_block_header(bytes(b))
+    struct.pack_into("<i", b, 9, WIDE_SBB)  # the LZP size, else the RLE size
+    mid = hdr.header_size() + (len(b) - hdr.header_size()) // 2
+    b[mid] ^= 0x10
+    return bytes(b), chunks[j][0]
+
+
+def phase_harden(card: str, data: bytes, bs: int, blocks: int, stream: bytes) -> dict:
+    """The port's hardening harnesses (``examples/torch_*.py``) on the card,
+    with the same seeds every run, each outcome held to the native engine
+    (the same bytes, or the same error code as the pipeline over the host
+    coder and an error from the native engine too) and a synchronise after
+    each batch:
+
+    a. ``torch_differential_engines``: 20 trials (1-4 blocks of 66,560 or
+       131,072 bytes) over the default, device-prepass and parallel routes,
+       encode and decode; ``torch_fuzz_round_trip`` on 40 inputs through
+       the device engine;
+    b. ``torch_fuzz_decode_block``: 400 of the JAX harness's damaged blocks
+       and the aimed cases through ``Bz3Codec.decode_block``, then in
+       batches of 1-8 through the default and the device-prepass
+       ``DeviceEngine`` (K6 on malformed LZP streams) and
+    e. through the host-BWT hybrid forced at 65 KiB (K3a on the intact
+       blocks, K3c on the damaged rows);
+    c. ``torch_fuzz_decompress``: 200 damaged frames with ``max_output``;
+    d. one of main's blocks with its size before the BWT set past 16 Mi
+       steps and a payload byte flipped, decoded on the wave path at a
+       block size of 17 MiB: K3b on a damaged payload, its decoded row
+       equal in full to the host coder's decode of the same payload;
+
+    then a ``torch.cuda.synchronize()`` and main's first block round-tripped
+    through a fresh ``DeviceEngine``, equal to main's stream: the context
+    survived.  ``bin/torch/bz3cat`` and ``bz3grep`` run once on main's
+    stream meanwhile, in processes of their own."""
+    import torch
+
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    import torch_differential_engines as de
+    import torch_fuzz_decode_block as fdb
+    import torch_fuzz_decompress as fdc
+    import torch_fuzz_round_trip as frt
+    from torch_harness import HarnessFailure, ReferenceEngine, check_batch
+    from bzip3_tpu_torch.engines import DeviceEngine, NativeEngine
+    from bzip3_tpu_torch.models.block_codec import parse_block_header
+    from bzip3_tpu_torch.ops import native
+    from bzip3_tpu_torch.ops.device import cm_cuda
+
+    t_phase = time.perf_counter()
+    os.makedirs(HARDEN_DIR, exist_ok=True)
+    main_path = os.path.join(HARDEN_DIR, "main.bz3")
+    with open(main_path, "wb") as f:
+        f.write(stream)
+    cat_path = os.path.join(HARDEN_DIR, "bz3cat.out")
+    grep_pat = b"<page>"
+    with open(cat_path, "wb") as cat_out:
+        procs = {"bz3cat": _wrapper("bz3cat", [main_path], cat_out),
+                 "bz3grep": _wrapper("bz3grep", ["-o", "-F", "-e", grep_pat.decode(), main_path],
+                                     subprocess.PIPE)}
+    out = {"phase": "harden", "card": card, "seed": HARDEN_SEED}
+    quiet = lambda *a: None  # noqa: E731
+    parts = {}
+
+    def part(name, fn):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        res["s"] = time.perf_counter() - t0
+        res["launches"] = {k: v - before[k] for k, v in launch_counts().items() if v - before[k]}
+        parts[name] = res
+
+    def wide():
+        blk, orig = _wide_damaged(_chunks(stream, bs)[:blocks])
+        rows, decode = [], cm_cuda.cm_decode
+
+        def keep(*a, **kw):  # the wave path's CM decode, its wide row kept
+            u = decode(*a, **kw)
+            if u.shape[1] >= WIDE_SBB:
+                rows.append(u[0, :WIDE_SBB].cpu().numpy().tobytes())
+            return u
+
+        cm_cuda.cm_decode = keep
+        try:
+            got = check_batch(HARDEN_SEED, "wide", [(blk, orig)], 17 * MiB, DeviceEngine("cuda"),
+                              ReferenceEngine(device="cuda"), NativeEngine(0), "cuda")
+        finally:
+            cm_cuda.cm_decode = decode
+        _require(len(rows) == 1, f"harden: the wave path decoded {len(rows)} wide rows")
+        want = native.cm_decode(blk[parse_block_header(blk).header_size() :], WIDE_SBB)
+        diff = np.flatnonzero(np.frombuffer(rows[0], np.uint8) != np.frombuffer(want, np.uint8))
+        _require(diff.size == 0, f"harden: K3b's decode of the damaged wide block differs from "
+                 f"the host coder's at {diff.size} of {WIDE_SBB} steps, first {diff[:1]}")
+        return {"outcome": got[1] if got[0] == "err" else "ok", "sbb": WIDE_SBB,
+                "k3b_row_equal_host_coder": True}
+
+    reset_launches()
+    try:
+        part("differential", lambda: de.run(HARDEN_SEED, 20, "cuda", oracle_row=64, log=quiet))
+        part("round_trip", lambda: frt.run(HARDEN_SEED, 40, "device", "cuda", log=quiet))
+        part("decode_block", lambda: fdb.run(HARDEN_SEED, 400, "cuda", log=quiet))
+        part("decompress", lambda: fdc.run(HARDEN_SEED, 200, "cuda", log=quiet))
+        part("wide", wide)
+    except HarnessFailure as e:
+        for p in procs.values():
+            p.kill()
+        _require(False, f"harden: {e}")
+    torch.cuda.synchronize()
+    eng = DeviceEngine("cuda")
+    first = eng.encode_blocks([data[:bs]], bs)[0]
+    _require(first == _chunks(stream, bs)[0][1], "harden: main's first block differs after the "
+             "harnesses")
+    _require(eng.decode_blocks([(first, bs)], bs)[0] == data[:bs],
+             "harden: main's first block does not round-trip after the harnesses")
+    torch.cuda.synchronize()
+    grep_out, grep_err = procs["bz3grep"].communicate(timeout=600)
+    procs["bz3cat"].wait(timeout=600)
+    _require(procs["bz3cat"].returncode == 0,
+             f"bin/torch/bz3cat: rc {procs['bz3cat'].returncode}: "
+             f"{procs['bz3cat'].stderr.read()[-2000:]}")
+    _require(procs["bz3grep"].returncode == 0,
+             f"bin/torch/bz3grep: rc {procs['bz3grep'].returncode}: {grep_err[-2000:]}")
+    with open(cat_path, "rb") as f:
+        _require(f.read() == data, "bin/torch/bz3cat's output differs from main's data")
+    hits = grep_out.count(b"\n")
+    _require(hits == data.count(grep_pat), f"bin/torch/bz3grep: {hits} matches against "
+             f"{data.count(grep_pat)}")
+    os.remove(cat_path)
+    out["parts"] = parts
+    out["trials"] = {"differential_trials": 20, "differential_routes": list(de.ROUTES),
+                     "round_trip_inputs": 40, "blocks": parts["decode_block"]["blocks"],
+                     "frames": parts["decompress"]["frames"], "wide_blocks": 1}
+    codes: dict = {}
+    for res in (parts["decode_block"]["outcomes"], parts["decompress"]["outcomes"],
+                *parts["decode_block"]["batches"].values(), {parts["wide"]["outcome"]: 1}):
+        for k, v in res.items():
+            codes[str(k)] = codes.get(str(k), 0) + v
+    out["outcomes"] = codes
+    out["wrappers"] = {"bz3cat_bytes": len(data), "bz3grep_matches": hits}
+    out["launches"] = launch_counts()
+    _require(all(out["launches"][k] for k in HARDEN_PATH),
+             f"harden launched no {[k for k in HARDEN_PATH if not out['launches'][k]]}")
+    _require(parts["wide"]["launches"].get("cm_decode_resume", 0) >= 2,
+             f"the wide block ran no K3b launches: {parts['wide']['launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def _resume_rows(parity: dict, resume: dict, b32: dict, over: dict, wide: dict) -> list[dict]:
     """K3a-K3c: times at [2, 32 Mi] (K3a, K3b; main_b32's own launches)
     and at the oversize row (K3c), launches from those phases; K3a's and
@@ -2577,7 +2769,8 @@ def _parallel_rows(ppar: dict, mpar: dict, resources: dict) -> list[dict]:
 
 def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: dict,
                  pshapes: dict, resume: dict, b32: dict, over: dict, resources: dict,
-                 surface: dict, ppar: dict, mpar: dict, wave: dict, wide: dict) -> dict:
+                 surface: dict, ppar: dict, mpar: dict, wave: dict, wide: dict,
+                 harden: dict) -> dict:
     """The kernels of the main paths: launches from the main phases
     (K1/K2 from the default path, K4-K6 from the device prepass chain,
     K3a-K3c from main_b32 and main_oversize, P1/P2 from main_parallel),
@@ -2673,6 +2866,12 @@ def kernels_line(parity: dict, main: dict, shapes: dict, pparity: dict, pmain: d
             row["ms_one_row"] = one["k4_one_row_queued_ms"]
             row["ms_one_row_idle_card"] = one["k4_one_row_ms"]
     rows += _parallel_rows(ppar, mpar, resources)
+    # the harden phase's launches, damaged and random input (every kernel)
+    keys = {"K1": "cm_encode", "K2": "cm_decode", "K3a": "cm_encode_resume",
+            "K3b": "cm_decode_resume", "K3c": "cm_decode_stream", "K4": "crc_lanes",
+            "K5": "lzp_encode", "K6": "lzp_decode", "P1": "chain_windows", "P2": "range_pass"}
+    for row in rows:
+        row["launches_harden"] = harden["launches"][keys[row["name"].split()[0]]]
     return {"kernels": rows}
 
 
@@ -2703,6 +2902,7 @@ def main() -> int:
     main_res, main_stream = phase_main(smi, data, bs, blocks)
     shapes = phase_main_shapes(smi, data, bs, blocks)
     surface = phase_surface(smi, data, bs, blocks, main_stream)
+    harden = phase_harden(smi, data, bs, blocks, main_stream)
     # 4 text blocks, 3 of log lines, 1 sparse: LZP and RLE both kept
     pdata = data[: 4 * bs] + log_corpus(3 * bs, seed=1) + sparse_block(bs, seed=2)
     pmain, pstream = phase_main_prepass(smi, pdata, bs, blocks)
@@ -2726,7 +2926,7 @@ def main() -> int:
     phase_multihost(smi, data, bs, main_stream)
     phase_dryrun(smi)
     emit(kernels_line(parity, main_res, shapes, pparity, pmain, pshapes, resume, b32, over,
-                      built["resources"], surface, ppar, mpar, wave, wide))
+                      built["resources"], surface, ppar, mpar, wave, wide, harden))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -67,10 +67,13 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t, uint32_t s) {
 // Reads through __ldg may be held to ranges: while emu_ldg_ranges holds
 // any, a read that is not wholly inside one of them is counted in
 // emu_ldg_faults and gives zero instead of touching memory.  Empty (the
-// CM and LZP tests), every read goes through.
+// CM and LZP tests), every read goes through.  These variables, like the
+// other per-library state below, are static: an inline variable is one
+// GNU-unique symbol shared by every emulation library a process loads, so
+// one test's ranges would hold in the next test's library.
 struct EmuRange { const char *lo, *hi; };
-inline std::vector<EmuRange> emu_ldg_ranges;
-inline std::atomic<long> emu_ldg_faults{0};
+static std::vector<EmuRange> emu_ldg_ranges;
+static std::atomic<long> emu_ldg_faults{0};
 template <class T> T __ldg(const T *p) {
     if (!emu_ldg_ranges.empty()) {
         const char *a = reinterpret_cast<const char *>(p), *b = a + sizeof(T);
@@ -147,7 +150,7 @@ struct EmuSpin {
 // each thread by emu_launch.
 extern thread_local unsigned char *smem;
 extern thread_local EmuBarrier *emu_bars, *emu_warps;
-inline thread_local EmuSpin *emu_spin;
+static thread_local EmuSpin *emu_spin;
 inline void emu_bar(int id, int count, bool wait) { emu_bars[id].arrive(count, wait); }
 inline void __syncthreads() { emu_bar(0, blockDim.x, true); }
 // A block of one warp (the LZP kernels) meets on the warp collectives'
@@ -160,7 +163,7 @@ inline void __syncwarp() {
 }
 
 // The slots of the thread's warp (set by emu_launch).
-inline thread_local uint32_t *emu_slots;
+static thread_local uint32_t *emu_slots;
 
 inline uint32_t emu_lane() { return threadIdx.x & 31u; }
 template <class F> inline uint32_t emu_collect(uint32_t mask, uint32_t v, F read) {

@@ -17,6 +17,7 @@ smoke test holds the kernels themselves against the plain versions.
 
 import ctypes
 import os
+import shlex
 import re
 import shutil
 import subprocess
@@ -28,6 +29,9 @@ import torch
 from bzip3_tpu_torch.ops.device import cm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# extra compiler flags for the emulation (scripts/torch_sanitize.py --emulated
+# builds it under ASan/UBSan)
+EMU_FLAGS = shlex.split(os.environ.get("BZ3_EMU_CXXFLAGS", ""))
 SRC = os.path.join(ROOT, "bzip3_tpu_torch", "csrc", "cm_kernels.cu")
 
 # (pattern, replacement, times it must match) turning the CUDA source into C++
@@ -93,7 +97,7 @@ def emu(tmp_path_factory):
     )
     so = d / "libcm_emu.so"
     res = subprocess.run(
-        [cxx, "-std=c++17", "-O2", "-pthread", "-fPIC", "-shared", "-w",
+        [cxx, "-std=c++17", "-O2", "-pthread", "-fPIC", "-shared", "-w", *EMU_FLAGS,
          "-I", os.path.join(ROOT, "tests"), "-I", os.path.dirname(SRC), str(cpp), "-o", str(so)],
         capture_output=True, text=True, timeout=300,
     )

@@ -18,6 +18,7 @@ versions.
 
 import ctypes
 import os
+import shlex
 import re
 import shutil
 import subprocess
@@ -30,6 +31,9 @@ from bzip3_tpu.ops.ref.cm import cm_encode as ref_cm_encode
 from bzip3_tpu_torch.ops.device import cm_parallel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# extra compiler flags for the emulation (scripts/torch_sanitize.py --emulated
+# builds it under ASan/UBSan)
+EMU_FLAGS = shlex.split(os.environ.get("BZ3_EMU_CXXFLAGS", ""))
 CSRC = os.path.join(ROOT, "bzip3_tpu_torch", "csrc")
 SRC = os.path.join(CSRC, "cm_parallel_kernels.cu")
 
@@ -95,7 +99,7 @@ def emu(tmp_path_factory):
     )
     so = d / "libcm_parallel_emu.so"
     res = subprocess.run(
-        [cxx, "-std=c++17", "-O2", "-pthread", "-fPIC", "-shared", "-w",
+        [cxx, "-std=c++17", "-O2", "-pthread", "-fPIC", "-shared", "-w", *EMU_FLAGS,
          "-I", os.path.join(ROOT, "tests"), "-I", CSRC, str(cpp), "-o", str(so)],
         capture_output=True, text=True, timeout=300,
     )

@@ -18,6 +18,7 @@ version.
 
 import ctypes
 import os
+import shlex
 import re
 import shutil
 import subprocess
@@ -30,6 +31,9 @@ from bzip3_tpu.ops.ref.crc32 import crc32 as ref_crc32
 from bzip3_tpu_torch.ops.device import crc32, gf2
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# extra compiler flags for the emulation (scripts/torch_sanitize.py --emulated
+# builds it under ASan/UBSan)
+EMU_FLAGS = shlex.split(os.environ.get("BZ3_EMU_CXXFLAGS", ""))
 SRC = os.path.join(ROOT, "bzip3_tpu_torch", "csrc", "crc32_kernels.cu")
 
 # (pattern, replacement, times it must match) turning the CUDA source into C++
@@ -92,7 +96,7 @@ def emu(tmp_path_factory):
             "thread_local EmuBarrier *emu_bars, *emu_warps;\n" + defs + src + _GLUE
         )
         libs[name] = d / f"libcrc_emu_{name}.so"
-        cmds.append([cxx, "-std=c++17", "-O2", "-pthread", "-fPIC", "-shared", "-w",
+        cmds.append([cxx, "-std=c++17", "-O2", "-pthread", "-fPIC", "-shared", "-w", *EMU_FLAGS,
                      "-I", os.path.join(ROOT, "tests"), str(cpp), "-o", str(libs[name])])
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]

@@ -19,6 +19,7 @@ against the plain version.
 
 import ctypes
 import os
+import shlex
 import re
 import shutil
 import subprocess
@@ -32,6 +33,9 @@ from bzip3_tpu.ops.ref.lzp import lzp_encode as ref_encode
 from bzip3_tpu_torch.ops.device import lzp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# extra compiler flags for the emulation (scripts/torch_sanitize.py --emulated
+# builds it under ASan/UBSan)
+EMU_FLAGS = shlex.split(os.environ.get("BZ3_EMU_CXXFLAGS", ""))
 SRC = os.path.join(ROOT, "bzip3_tpu_torch", "csrc", "lzp_kernels.cu")
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the hazard rows; it imports only numpy at the top)
@@ -85,7 +89,7 @@ def emu(tmp_path_factory):
     )
     so = d / "liblzp_emu.so"
     res = subprocess.run(
-        [cxx, "-std=c++17", "-O2", "-pthread", "-fPIC", "-shared", "-w",
+        [cxx, "-std=c++17", "-O2", "-pthread", "-fPIC", "-shared", "-w", *EMU_FLAGS,
          "-I", os.path.join(ROOT, "tests"), str(cpp), "-o", str(so)],
         capture_output=True, text=True, timeout=300,
     )

@@ -85,3 +85,31 @@ def test_decode_matches_jax_and_oracle(rows):
     for i, r in enumerate(rows[:5]):
         assert got[i, : len(r)].numpy().tobytes() == r == ref_decode(enc[i], len(r))
         assert not got[i, len(r) :].any()
+
+
+def test_decode_of_a_stream_ending_inside_a_run_length_is_the_oracles():
+    """A stream that ends inside a run's length bytes (a gated byte, then
+    only 255s): mrled adds 255 for each 255, then the last one again as
+    its terminator (255k + 256 bytes), and a header that is the stream's
+    last byte runs 0 bytes.  The tensor decoder took such a run as empty
+    and failed the block; the reference, the oracle and the host C++
+    decode it (found by ``examples/torch_fuzz_decode_block.py``)."""
+    gate = b"\xff" * 32
+    streams = [gate + b"a" + b"\xff" * k for k in range(4)]
+    streams += [gate + b"xy" + b"\xff", bytes(range(32)) + b"\x05\x07\xff\xff",
+                gate + b"a\x03" + b"b" + b"\xff" * 2]
+    rng = np.random.default_rng(7)
+    for _ in range(40):  # bodies of 255s and gated bytes, cut anywhere
+        body = rng.choice(np.array([255, 255, 97, 0, 3], np.uint8), int(rng.integers(0, 24)))
+        streams.append(gate + body.tobytes())
+    for out_len in (0, 1, 64, 300, 1030):
+        width = max(map(len, streams))
+        data, lens = _pad(streams, width)
+        out, ok = rle_decode_batch(torch.from_numpy(data), torch.from_numpy(lens),
+                                   torch.full((len(streams),), out_len, dtype=torch.int32),
+                                   max(1, out_len))
+        for i, s in enumerate(streams):
+            want = ref_decode(s, out_len)
+            assert bool(ok[i]) == (want is not None), (i, out_len)
+            if want is not None:
+                assert out[i, :out_len].numpy().tobytes() == want, (i, out_len)
