@@ -10,8 +10,9 @@ layers:
 and names in ``stages`` the single-block stage namespace that recover
 mode decodes a damaged block through.
 
-- ``oracle``: the block codec (``models/block_codec.py``) over the plain
-  versions, ``block_stages("cpu")``; slow, the port's reference.
+- ``oracle``: the block codec (``models/block_codec.py``) over the
+  executable spec ``ops/ref`` (NumPy and Python, on the host, sharing no
+  code with the tensor code or the kernels); slow, the port's reference.
 - ``native``: the host C++ codec with a pthread block pool
   (``ops/native``).
 - ``device``: the batched block pipeline (``pipeline.py``) on ``device``:
@@ -33,7 +34,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from .models.block_codec import decode_block, encode_block
-from .ops import native
+from .ops import native, ref
 from .ops.build import BuildError
 from .ops.device.stages import block_stages
 from .parallel.sharding import make_mesh, sharded_pipeline
@@ -45,9 +46,7 @@ NAMES = ("device", "sharded", "oracle", "native", "hybrid", "auto")
 
 class OracleEngine:
     name = "oracle"
-
-    def __init__(self):
-        self.stages = block_stages("cpu")
+    stages = ref
 
     def encode_blocks(self, blocks, block_size=None):
         return [encode_block(b, self.stages) for b in blocks]
@@ -204,7 +203,7 @@ def get_engine(name: str = "auto", n_threads: int = 0, device="cuda"):
     if name == "auto":
         try:
             return NativeEngine(n_threads)
-        except BuildError:  # no host compiler: the plain versions
+        except BuildError:  # no host compiler: the executable spec
             return OracleEngine()
     if name == "oracle":
         return OracleEngine()

@@ -35,7 +35,11 @@ class Bz3Error(Exception):
 
     def __init__(self, code: int, detail: str = ""):
         self.code = code
+        self.detail = detail
         msg = strerror(code)
         if detail:
             msg = f"{msg}: {detail}"
         super().__init__(msg)
+
+    def __reduce__(self):  # keeps the code across a process pool
+        return type(self), (self.code, self.detail)

@@ -1,2 +1,3 @@
-"""Stage codecs: host passes (``host``), device stages (``device``) and
-the native build (``build``)."""
+"""Stage codecs: the executable spec (``ref``), host passes (``host``),
+device stages (``device``), the host C++ codec (``native``) and the
+native build (``build``)."""

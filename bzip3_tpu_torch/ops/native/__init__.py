@@ -5,7 +5,12 @@
 - ``encode_blocks`` / ``decode_blocks``: a batch of blocks over a pthread
   pool in C++ (the reference's bz3_encode_blocks / bz3_decode_blocks,
   src/libbz3.c:845), each worker with its own workspace;
+- ``NativeCodec(block_size)``: one block at a time on the calling
+  thread (bz3_encode_block / bz3_decode_block, src/libbz3.c:585-809),
+  raising the JAX package's codes;
 - ``cm_encode`` / ``cm_decode``: the CM stage alone, from a fresh model;
+- ``rle_encode`` / ``rle_decode``, ``lzp_encode`` / ``lzp_decode``,
+  ``bwt_forward`` / ``bwt_inverse``: the other stages, from ``ops/host``;
 - ``STAGES``: the single-block stage namespace on the host C++, the
   native engine's counterpart of ``ops.device.BlockStages`` (recover
   mode decodes a damaged block through it).
@@ -21,7 +26,13 @@ import ctypes
 from types import SimpleNamespace
 
 from ...container.bound import bound
-from ...errors import Bz3Error, BZ3_ERR_CRC, BZ3_ERR_MALFORMED_HEADER
+from ...errors import (
+    Bz3Error,
+    BZ3_ERR_BWT,
+    BZ3_ERR_CRC,
+    BZ3_ERR_DATA_SIZE_TOO_SMALL,
+    BZ3_ERR_MALFORMED_HEADER,
+)
 from .. import host
 from ..build import load_host
 
@@ -45,6 +56,10 @@ def _lib() -> ctypes.CDLL:
         lib.bz3h_encode_blocks.argtypes = [_pp, _pi, _pv, _pi, _i, _i]
         lib.bz3h_decode_blocks.restype = None
         lib.bz3h_decode_blocks.argtypes = [_pp, _pi, _pi, _i, _pv, _pi, _i, _i]
+        lib.bz3h_encode_block.restype = _i
+        lib.bz3h_encode_block.argtypes = [ctypes.c_char_p, _i, _c]
+        lib.bz3h_decode_block.restype = _i
+        lib.bz3h_decode_block.argtypes = [ctypes.c_char_p, _i, _i, _i, _c]
         _ready = True
     return lib
 
@@ -56,6 +71,43 @@ def load() -> None:
 
 # CRC32-C with init 1 and no final xor (src/libbz3.c:37-72)
 crc32 = host.crc32
+rle_encode, rle_decode = host.rle_encode, host.rle_decode
+lzp_encode, lzp_decode = host.lzp_encode, host.lzp_decode
+bwt_forward, bwt_inverse = host.bwt_forward, host.bwt_inverse
+
+# a failed block decode's code (bz3h_decode_block), as the JAX package's
+# native codec raises it; any other is a malformed header
+_DECODE_CODES = {
+    -1: BZ3_ERR_BWT,
+    -2: BZ3_ERR_MALFORMED_HEADER,
+    -3: BZ3_ERR_CRC,
+    -5: BZ3_ERR_DATA_SIZE_TOO_SMALL,
+}
+
+
+class NativeCodec:
+    """Block codec on the host C++ for ``block_size`` (cf. bz3_new): one
+    block a call on the calling thread, each thread with its own
+    workspace inside the library."""
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        self._lib = _lib()
+
+    def encode_block(self, data: bytes) -> bytes:
+        out = ctypes.create_string_buffer(bound(len(data)) + 64)
+        r = self._lib.bz3h_encode_block(data, len(data), out)
+        if r < 0:
+            raise RuntimeError(f"native encode failed: {r}")
+        return out.raw[:r]
+
+    def decode_block(self, block: bytes, orig_size: int) -> bytes:
+        out = ctypes.create_string_buffer(bound(self.block_size) + 64)
+        r = self._lib.bz3h_decode_block(block, len(block), orig_size, self.block_size, out)
+        if r < 0:
+            raise Bz3Error(_DECODE_CODES.get(r, BZ3_ERR_MALFORMED_HEADER),
+                           f"native decode failed: {r}")
+        return out.raw[:r]
 
 
 def cm_encode(data: bytes) -> bytes:
@@ -122,12 +174,12 @@ def decode_blocks(
 
 STAGES = SimpleNamespace(
     crc32=crc32,
-    bwt_forward=host.bwt_forward,
-    bwt_inverse=host.bwt_inverse,
+    bwt_forward=bwt_forward,
+    bwt_inverse=bwt_inverse,
     cm_encode=cm_encode,
     cm_decode=cm_decode,
-    rle_encode=host.rle_encode,
-    rle_decode=host.rle_decode,
-    lzp_encode=host.lzp_encode,
-    lzp_decode=host.lzp_decode,
+    rle_encode=rle_encode,
+    rle_decode=rle_decode,
+    lzp_encode=lzp_encode,
+    lzp_decode=lzp_decode,
 )

@@ -40,7 +40,8 @@ JSON line:
 8. harden  - the hardening harnesses of ``examples/torch_*.py`` on the
              card with fixed seeds (``phase_harden``): the engine
              differential over the default, device-prepass and parallel
-             routes, the round-trip fuzz, ~600 damaged blocks through
+             routes, every block of it held whole to the oracle engine
+             (``ops/ref``) on worker processes, the round-trip fuzz, ~600 damaged blocks through
              ``Bz3Codec`` and three batched routes (K6 on malformed LZP
              streams, K3a/K3c on the forced hybrid), 200 damaged frames,
              one damaged block decoded by K3b on the wave path, every
@@ -2486,6 +2487,7 @@ def phase_surface(card: str, data: bytes, bs: int, blocks: int, stream: bytes) -
 HARDEN_DIR = os.path.join(ROOT, "_build", "harden")
 EXAMPLES = os.path.join(ROOT, "examples")
 HARDEN_SEED = 13
+ORACLE_MIN_BLOCKS = 16  # compressed blocks the oracle leg must hold
 # the kernels the harden phase must launch (K3c: the forced hybrid)
 HARDEN_PATH = ("cm_encode", "cm_decode", "cm_encode_resume", "cm_decode_resume",
                "cm_decode_stream", "crc_lanes", "lzp_encode", "lzp_decode", "chain_windows",
@@ -2532,8 +2534,12 @@ def phase_harden(card: str, data: bytes, bs: int, blocks: int, stream: bytes) ->
 
     a. ``torch_differential_engines``: 20 trials (1-4 blocks of 66,560 or
        131,072 bytes) over the default, device-prepass and parallel routes,
-       encode and decode; ``torch_fuzz_round_trip`` on 40 inputs through
-       the device engine;
+       encode and decode; its oracle leg encodes and decodes every block of
+       them, whole, through the oracle engine (``ops/ref``) on
+       ``OracleLeg.WORKERS`` spawned processes while the card runs the rest
+       of the phase, checked after ``e``, and its plain leg the blocks of
+       CM rows up to 64 bytes through the plain versions;
+       ``torch_fuzz_round_trip`` on 40 inputs through the device engine;
     b. ``torch_fuzz_decode_block``: 400 of the JAX harness's damaged blocks
        and the aimed cases through ``Bz3Codec.decode_block``, then in
        batches of 1-8 through the default and the device-prepass
@@ -2613,26 +2619,37 @@ def phase_harden(card: str, data: bytes, bs: int, blocks: int, stream: bytes) ->
                 "k3b_row_equal_host_coder": True}
 
     reset_launches()
-    try:
-        part("differential", lambda: de.run(HARDEN_SEED, 20, "cuda", oracle_row=64, log=quiet))
+    leg = de.OracleLeg()
+    try:  # the wrappers and the oracle's workers are stopped whatever fails
+        part("differential", lambda: de.run(HARDEN_SEED, 20, "cuda", plain_row=64, log=quiet,
+                                            leg=leg))
         part("round_trip", lambda: frt.run(HARDEN_SEED, 40, "device", "cuda", log=quiet))
         part("decode_block", lambda: fdb.run(HARDEN_SEED, 400, "cuda", log=quiet))
         part("decompress", lambda: fdc.run(HARDEN_SEED, 200, "cuda", log=quiet))
         part("wide", wide)
+        oracle = leg.finish()
+        emit({"phase": "harden_oracle", "card": card, "seed": HARDEN_SEED,
+              "mismatches": oracle["blocks"] - oracle["equal"], **oracle})
+        _require(oracle["compressed_blocks"] >= ORACLE_MIN_BLOCKS,
+                 f"harden: the oracle held {oracle['compressed_blocks']} compressed blocks, "
+                 f"fewer than {ORACLE_MIN_BLOCKS}")
+        torch.cuda.synchronize()
+        eng = DeviceEngine("cuda")
+        first = eng.encode_blocks([data[:bs]], bs)[0]
+        _require(first == _chunks(stream, bs)[0][1], "harden: main's first block differs after "
+                 "the harnesses")
+        _require(eng.decode_blocks([(first, bs)], bs)[0] == data[:bs],
+                 "harden: main's first block does not round-trip after the harnesses")
+        torch.cuda.synchronize()
+        grep_out, grep_err = procs["bz3grep"].communicate(timeout=600)
+        procs["bz3cat"].wait(timeout=600)
     except HarnessFailure as e:
-        for p in procs.values():
-            p.kill()
         _require(False, f"harden: {e}")
-    torch.cuda.synchronize()
-    eng = DeviceEngine("cuda")
-    first = eng.encode_blocks([data[:bs]], bs)[0]
-    _require(first == _chunks(stream, bs)[0][1], "harden: main's first block differs after the "
-             "harnesses")
-    _require(eng.decode_blocks([(first, bs)], bs)[0] == data[:bs],
-             "harden: main's first block does not round-trip after the harnesses")
-    torch.cuda.synchronize()
-    grep_out, grep_err = procs["bz3grep"].communicate(timeout=600)
-    procs["bz3cat"].wait(timeout=600)
+    finally:
+        leg.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
     _require(procs["bz3cat"].returncode == 0,
              f"bin/torch/bz3cat: rc {procs['bz3cat'].returncode}: "
              f"{procs['bz3cat'].stderr.read()[-2000:]}")
@@ -2645,8 +2662,10 @@ def phase_harden(card: str, data: bytes, bs: int, blocks: int, stream: bytes) ->
              f"{data.count(grep_pat)}")
     os.remove(cat_path)
     out["parts"] = parts
+    out["oracle"] = oracle
     out["trials"] = {"differential_trials": 20, "differential_routes": list(de.ROUTES),
-                     "round_trip_inputs": 40, "blocks": parts["decode_block"]["blocks"],
+                     "oracle_blocks": oracle["blocks"], "round_trip_inputs": 40,
+                     "blocks": parts["decode_block"]["blocks"],
                      "frames": parts["decompress"]["frames"], "wide_blocks": 1}
     codes: dict = {}
     for res in (parts["decode_block"]["outcomes"], parts["decompress"]["outcomes"],

@@ -29,7 +29,10 @@ and seconds, and ``tool_ran`` False with the sanitizer's reason where it
 refused the card (compute-sanitizer 2025.2.1 answers "Device not
 supported" on some virtualised H100s); then the card's ``nvidia-smi``
 line.  It exits 1 if any run reported an error or did not run to its
-summary, 2 without a card.
+summary, 2 without a card.  Before the tools it prints what decides
+whether the tool may attach (``card_env``): the driver's version, the
+MIG, virtualisation and confidential-computing fields of ``nvidia-smi
+-q``, and the kernel the machine reports.
 
 ``--emulated`` is the lane that runs anywhere, on the CPU: the kernels'
 CUDA source under the host emulation of ``tests/cuda_emu.h`` (the
@@ -75,6 +78,49 @@ def sanitizer() -> str:
                 return p
         raise FileNotFoundError("compute-sanitizer not found (PATH, CUDA_HOME, /usr/local/cuda)")
     return cand
+
+
+# fields of ``nvidia-smi -q`` (a header's own line, or a line under one)
+# that say whether a debugger-class tool may attach to the card
+ENV_FIELDS = re.compile(r"(?i)\bmig\b|virtuali[sz]ation|vgpu|conf(idential)? ?compute|\bcc\b")
+
+
+def _read_first_line(path: str) -> str | None:
+    try:
+        with open(path) as f:
+            return f.readline().strip()
+    except OSError:
+        return None
+
+
+def card_env() -> dict:
+    """The driver's version, the MIG, virtualisation and confidential-
+    computing fields of ``nvidia-smi -q`` ("header/key": value), and the
+    kernel's and the NVIDIA module's version lines: reads only."""
+
+    def smi(*args):
+        try:
+            r = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            return None, str(e)
+        return r.returncode, r.stdout + r.stderr
+
+    _, driver = smi("--query-gpu=driver_version", "--format=csv,noheader")
+    fields, header = {}, ""
+    for line in (smi("-q")[1] or "").splitlines():
+        if not line.strip():
+            continue
+        key, sep, val = line.partition(":")
+        if not sep or not val.strip():
+            header = key.strip()  # a section or sub-section header
+            continue
+        if ENV_FIELDS.search(key) or ENV_FIELDS.search(header):
+            fields[f"{header}/{key.strip()}"] = val.strip()
+    cc_rc, cc = smi("conf-compute", "-f")
+    return {"driver_version": (driver or "").strip(), "smi_q_fields": fields,
+            "conf_compute_query": {"rc": cc_rc, "out": (cc or "").strip()[-500:]},
+            "proc_version": _read_first_line("/proc/version"),
+            "nvidia_module": _read_first_line("/proc/driver/nvidia/version")}
 
 
 # -- the child's targets -----------------------------------------------------
@@ -191,7 +237,7 @@ def child_diff() -> None:
     sys.path.insert(0, os.path.join(ROOT, "examples"))
     import torch_differential_engines as de
 
-    de.run(1, 3, "cuda", oracle_row=0, log=lambda *a: None)
+    de.run(1, 3, "cuda", plain_row=0, log=lambda *a: None)
 
 
 CHILDREN = {"kernels": child_kernels, "fuzz": child_fuzz, "diff": child_diff}
@@ -297,8 +343,10 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     cs = sanitizer()
     ver = subprocess.run([cs, "--version"], capture_output=True, text=True, timeout=60)
+    env = card_env()
     print(json.dumps({"sanitizer": cs, "version": ver.stdout.strip().splitlines()[-1:],
                       "rc": ver.returncode}), flush=True)
+    print(json.dumps({"card_env": env}), flush=True)
     results, bad = [], False
     for tool in tools:
         for target in TARGETS[tool]:
@@ -311,7 +359,7 @@ def main() -> int:
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
-            json.dump({"card": smi, "results": results}, f, indent=1)
+            json.dump({"card": smi, "card_env": env, "results": results}, f, indent=1)
     print(smi, flush=True)
     return 1 if bad else 0
 

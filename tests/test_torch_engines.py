@@ -1,7 +1,8 @@
 """The port's engine registry on the CPU: the native engine (host C++
 pool) against the JAX package's native engine and the port's device
-engine, the hybrid engine against the native one, the oracle engine,
-and ``get_engine``'s names.  Streams must be byte-identical and the
+engine, the hybrid engine against the native one, the oracle engine
+(the block codec over ``ops/ref``) against the JAX oracle engine on
+intact and damaged blocks, and ``get_engine``'s names.  Streams must be byte-identical and the
 native engine must reject damaged blocks with the JAX native engine's
 codes.  Blocks are KiB-sized or collapse under RLE and LZP, so that the
 plain CM coder of the CPU device engine stays cheap.
@@ -13,7 +14,9 @@ import numpy as np
 import pytest
 
 from bzip3_tpu.engines import NativeEngine as JaxNative
+from bzip3_tpu.engines import OracleEngine as JaxOracle
 from bzip3_tpu.errors import Bz3Error as JaxBz3Error
+from bzip3_tpu.ops.native import NativeCodec as JaxNativeCodec
 from bzip3_tpu_torch.engines import (
     DeviceEngine,
     HybridEngine,
@@ -22,8 +25,9 @@ from bzip3_tpu_torch.engines import (
     get_engine,
 )
 from bzip3_tpu_torch.errors import Bz3Error
-from bzip3_tpu_torch.ops import build, native
+from bzip3_tpu_torch.ops import build, native, ref
 from fixtures import sample_mixed, sample_text
+from test_torch_harness import fuzz_cases  # noqa: F401 -- a fixture here too, at 65 KiB
 
 BS = 65 * 1024
 RNG = np.random.default_rng(5)
@@ -108,6 +112,37 @@ def test_native_rejects_corruption_like_jax(port_native, jax_blocks, case):
     assert got[0] == "error"
 
 
+@pytest.mark.parametrize("case", ["intact"] + CORRUPTIONS)
+def test_native_codec_equals_jax_native_codec(jax_blocks, case):
+    """``ops.native.NativeCodec``, one block a call: the JAX package's
+    ``NativeCodec`` bytes, and its error code on each damaged block."""
+    codec, jcodec = native.NativeCodec(BS), JaxNativeCodec(BS)
+    assert codec.encode_block(BLOCKS[0]) == jcodec.encode_block(BLOCKS[0]) == jax_blocks[0]
+    blk, n = (jax_blocks[0], len(BLOCKS[0])) if case == "intact" else _damage(jax_blocks[0], case)
+
+    def one(c):
+        try:
+            return ("ok", c.decode_block(blk, n))
+        except (Bz3Error, JaxBz3Error) as e:
+            return ("error", e.code)
+
+    got = one(codec)
+    assert got == one(jcodec)
+    assert got == ("ok", BLOCKS[0]) if case == "intact" else got[0] == "error"
+
+
+def test_native_module_stage_names_are_the_host_stages():
+    data = BLOCKS[1][:5000] + bytes(RNG.integers(0, 256, 500, dtype=np.uint8))
+    for name in ("crc32", "rle_encode", "lzp_encode", "bwt_forward", "cm_encode"):
+        fn = getattr(native, name)
+        assert fn is getattr(native.STAGES, name)
+        assert fn(data) == getattr(ref, name)(data), name
+    u, idx = native.bwt_forward(data)
+    assert native.bwt_inverse(u, idx) == data
+    assert native.rle_decode(native.rle_encode(data), len(data)) == data
+    assert native.lzp_decode(native.lzp_encode(data), len(data)) == data
+
+
 @pytest.mark.parametrize("share", [0.5, 1.0, 0.0])
 def test_hybrid_equals_native(monkeypatch, port_native, jax_blocks, share):
     monkeypatch.setenv("BZ3_TPU_HYBRID_MIN_MIB", "0")
@@ -129,12 +164,29 @@ def test_hybrid_gate_and_share(monkeypatch):
     assert HybridEngine(device="cpu", device_share=7).device_share == 1.0
 
 
-def test_oracle_engine_equals_native(jax_blocks):
+@pytest.mark.parametrize("i", range(len(BLOCKS)))
+def test_oracle_engine_equals_native(jax_blocks, i):
+    """Each block of ``BLOCKS`` (65 KiB of mixed data, text, runs, the
+    literal region, the empty block): the native engines' bytes, which
+    are the JAX oracle engine's, and back; recover mode's stage namespace
+    is the spec itself."""
     eng = OracleEngine()
-    small = [BLOCKS[0], BLOCKS[3], BLOCKS[5]]
-    enc = eng.encode_blocks(small)
-    assert enc == [jax_blocks[0], jax_blocks[3], jax_blocks[5]]
-    assert eng.decode_blocks([(e, len(b)) for e, b in zip(enc, small)], BS) == small
+    assert eng.stages is ref
+    enc = eng.encode_blocks([BLOCKS[i]], BS)
+    assert enc == JaxOracle().encode_blocks([BLOCKS[i]]) == [jax_blocks[i]]
+    assert eng.decode_blocks([(enc[0], len(BLOCKS[i]))], BS) == [BLOCKS[i]]
+
+
+def test_oracle_engine_decodes_damaged_blocks_like_jax_oracle(fuzz_cases):
+    """The JAX decode harness's damaged blocks and the aimed cases: the
+    same bytes, or the same ``Bz3Error`` code, block by block."""
+    eng = OracleEngine()
+    codes = set()
+    for i, ((block, osize), want) in enumerate(zip(fuzz_cases[1], fuzz_cases[2])):
+        got = _codes(eng, [(block, osize)])
+        assert got == (("ok", [want[1]]) if want[0] == "ok" else ("error", want[1])), i
+        codes.add(got[1] if got[0] == "error" else "ok")
+    assert {"ok", -2, -3, -4, -8} <= codes
 
 
 def test_get_engine_names():

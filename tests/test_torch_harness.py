@@ -9,6 +9,7 @@ path runs with ``device="cpu"`` on a few inputs whose CM rows are at most
 JAX function is compiled: the oracle is numpy.
 """
 
+import functools
 import os
 import sys
 from collections import Counter
@@ -68,14 +69,20 @@ def _row(block: bytes, osize: int) -> int:
     return 0 if hdr.is_literal else max(0, size_before_bwt(hdr, osize))
 
 
+@functools.lru_cache(maxsize=None)
+def _fuzz_cases():
+    valid, cases = fdb.jax_inputs(0, 60)
+    cases += [c for c in fdb.aimed_cases(BS) if _row(*c) <= 16384]
+    return valid, cases, [jax_outcome(jax_bc.decode_block, b, o, BS) for b, o in cases]
+
+
 @pytest.fixture(scope="module")
 def fuzz_cases():
     """(the JAX harness's valid block, cases, the JAX oracle's outcome of
     each): its first 60 inputs of seed 0 and the aimed cases whose CM rows
-    are at most 16 KiB (a wider one costs ~1.2 s in the numpy oracle)."""
-    valid, cases = fdb.jax_inputs(0, 60)
-    cases += [c for c in fdb.aimed_cases(BS) if _row(*c) <= 16384]
-    return valid, cases, [jax_outcome(jax_bc.decode_block, b, o, BS) for b, o in cases]
+    are at most 16 KiB (a wider one costs ~1.2 s in the numpy oracle).
+    Made once a process: ``test_torch_engines.py`` uses them too."""
+    return _fuzz_cases()
 
 
 def test_decode_fuzz_inputs_are_the_jax_harness_inputs(fuzz_cases):
@@ -211,18 +218,55 @@ def test_differential_native_equals_jax_oracle():
 
 def test_differential_routes_on_cpu_small_blocks():
     """One trial through the default, device-prepass and parallel routes
-    of the pipeline on the CPU, held to the native engine and, for the
-    rows of at most 64 bytes, the oracle engine: blocks whose CM rows are
-    short (zeros, a repeated phrase, runs, the literal region)."""
+    of the pipeline on the CPU, held to the native engine, every block to
+    the oracle engine and, for the rows of at most 64 bytes, the plain
+    versions: blocks whose CM rows are short (zeros, a repeated phrase,
+    runs, the literal region)."""
     rng = np.random.default_rng(9)
     blocks = [bytes(5000), (b"the quick brown fox " * 150)[:2900],
               rng.integers(0, 256, 40, dtype=np.uint8).tobytes(),
               b"".join(bytes([97 + i % 3]) * (1 + i % 40) for i in range(30))]
-    rt = de.Routes("cpu", oracle_row=64)
+    rt = de.Routes("cpu", plain_row=64, oracle=de.OracleLeg())
     de.one_trial(0, 0, 66560, blocks, rt)
-    assert rt.oracle_blocks == 2  # the zeros' row and the literal
+    assert rt.plain_blocks == 2  # the zeros' row and the literal
+    leg = rt.oracle.finish()
+    assert (leg["blocks"], leg["compressed_blocks"], leg["bytes"]) == (4, 3, 5000 + 2900 + 40 + 465)
+    assert leg["equal"] == 4
     for data, enc in zip(blocks, rt.nat.encode_blocks(blocks, 66560)):
         assert enc == jax_bc.encode_block(data)
+
+
+def test_differential_oracle_leg_on_worker_processes():
+    """The oracle leg as ``chip_smoke.py``'s ``harden`` runs it, on spawned
+    workers: whole blocks checked in ``finish``, a block whose stream
+    differs named by its seed and index after every block was checked,
+    and the workers stopped."""
+    data = [(b"the quick brown fox " * 400)[:7000], bytes(3000) + b"xyz" * 50]
+    nat = NativeEngine(0).encode_blocks(data, 66560)
+    leg = de.OracleLeg()
+    for i, (d, blk) in enumerate(zip(data, nat)):
+        leg.submit(7, i, d, blk, 66560, len(d))
+    leg.submit(7, 2, data[1], nat[0], 66560, len(data[1]))
+    leg.submit(7, 3, data[0], nat[1], 66560, len(data[0]))
+    with pytest.raises(th.HarnessFailure, match=r"seed 7 index 2: oracle: encode differs"
+                       r"(.|\n)*\(2 of 4 blocks failed the oracle\)"):
+        leg.finish()
+    with pytest.raises(RuntimeError, match="shutdown"):
+        leg.submit(7, 4, data[0], nat[0], 66560, len(data[0]))
+
+
+def test_differential_oracle_leg_names_a_block_its_worker_raised_on():
+    """A worker's exception (here the oracle's ``Bz3Error`` on a block
+    whose header the card would have garbled) comes out of ``finish`` as
+    a ``HarnessFailure`` naming the block's seed and index."""
+    data = (b"the quick brown fox " * 400)[:7000]
+    blk = NativeEngine(0).encode_blocks([data], 66560)[0]
+    leg = de.OracleLeg()
+    leg.submit(3, 0, data, blk, 66560, len(data))
+    leg.submit(3, 5, data, blk[:9] + b"\xff" * 4 + blk[13:], 66560, len(data))
+    with pytest.raises(th.HarnessFailure, match=r"seed 3 index 5: Bz3Error: Malformed header"
+                       r"(.|\n)*\(1 of 2 blocks failed the oracle\)"):
+        leg.finish()
 
 
 def test_make_corpus_is_bench_corpus():

@@ -77,7 +77,9 @@ def test_port_imports_no_jax_and_no_jax_package(probe):
         "ops.device.cm", "ops.build", "engines", "ops.device.stages", "ops.native",
         "models.block_codec", "container.bound", "container.frame",
         "ops.device.cm_parallel", "ops.device.cm_parallel_cuda", "utils.profiling",
-        "parallel", "parallel.sharding", "parallel.multihost",
+        "parallel", "parallel.sharding", "parallel.multihost", "ops.ref", "ops.ref.crc32",
+        "ops.ref.rle", "ops.ref.lzp", "ops.ref.bwt", "ops.ref.lcp", "ops.ref.cm",
+        "ops.ref.cm_parallel", "models",
     ):
         assert f"bzip3_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == [], f"port or chip_smoke.py pulled in {got['bad']}"
