@@ -1,0 +1,5 @@
+"""Share of the decode calls' time with no operation on the card, %, from the device trace."""
+
+
+def read(ctx):
+    return ctx.idle_pct("decode")
