@@ -14,7 +14,9 @@ engines run on the card unless ``--device cpu`` is given.  File naming
 follows the reference: encode appends ``.bz3`` (src/main.c:747-770),
 decode and recover require it unless writing to standard output
 (src/main.c:783), and compressed data is never written to a terminal
-(src/main.c:161-165).
+(src/main.c:161-165).  Under ``BZ3_TPU_PROFILE=1`` the device engine's
+``timer.summary()`` (stages, spans, counters, launches, library loads)
+goes to stderr after each file.
 """
 
 from __future__ import annotations
@@ -150,6 +152,15 @@ def _process(inp, out, mode, block_size, engine, batch_size, args) -> None:
             print("OK" if mode == "test" else f"{r} -> {w} bytes", file=sys.stderr)
 
 
+def _print_profile(engine) -> None:
+    """The engine's stage timer, when on (``BZ3_TPU_PROFILE=1``), to
+    stderr; then cleared, so that each file prints its own."""
+    timer = getattr(engine, "timer", None)
+    if timer is not None and timer.enabled:
+        print(timer.summary(), file=sys.stderr)
+        timer.clear()
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.help:
@@ -186,6 +197,7 @@ def main(argv=None):
         finally:
             if inp is not sys.stdin.buffer:
                 inp.close()
+            _print_profile(engine)
         if out is sys.stdout.buffer:
             out.flush()
         elif out is not None:

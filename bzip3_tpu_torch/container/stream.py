@@ -10,6 +10,10 @@ validates both chunk sizes against bound(block_size) before decoding.
 ``test`` is decode without output; ``recover`` decodes what it can,
 writes best-effort bytes for the blocks that fail, and goes on
 (src/main.c:279-299).
+
+The reads and writes are host spans ``container/<encode|decode>/<read|write>``
+(``utils.profiling.host_span``): on the engine's timer where it has one
+that is on, and ranges of a ``torch.profiler`` trace while one records.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from .bound import MiB, bound, validate_block_size
 from ..engines import DeviceEngine
 from ..errors import Bz3Error, BZ3_ERR_MALFORMED_HEADER, BZ3_ERR_TRUNCATED_DATA
 from ..models.block_codec import decode_block_recover
+from ..utils.profiling import host_span
 
 MAGIC = b"BZ3v1"
 _U32 = struct.Struct("<I")
@@ -50,25 +55,28 @@ def read_file_header(inp: BinaryIO, recover: bool = False) -> int:
     return block_size
 
 
-def iter_chunks(inp: BinaryIO, block_size: int) -> Iterator[tuple[int, int, bytes]]:
-    """Yield (csize, osize, payload) triples until EOF."""
+def iter_chunks(inp: BinaryIO, block_size: int,
+                timer=None) -> Iterator[tuple[int, int, bytes]]:
+    """Yield (csize, osize, payload) triples until EOF, each chunk's
+    reads a span ``container/decode/read`` (``host_span`` on ``timer``)."""
     cap = bound(block_size)
     while True:
-        hdr = inp.read(4)
-        if not hdr:
-            return
-        if len(hdr) != 4:
-            raise Bz3Error(BZ3_ERR_TRUNCATED_DATA, "short chunk header")
-        csize = _U32.unpack(hdr)[0]
-        raw = inp.read(4)
-        if len(raw) != 4:
-            raise Bz3Error(BZ3_ERR_TRUNCATED_DATA, "short chunk header")
-        osize = _U32.unpack(raw)[0]
-        if csize > cap or osize > cap:
-            raise Bz3Error(BZ3_ERR_MALFORMED_HEADER, "inconsistent chunk header")
-        payload = inp.read(csize)
-        if len(payload) != csize:
-            raise Bz3Error(BZ3_ERR_TRUNCATED_DATA, "short chunk payload")
+        with host_span(timer, "container/decode/read"):
+            hdr = inp.read(4)
+            if not hdr:
+                return
+            if len(hdr) != 4:
+                raise Bz3Error(BZ3_ERR_TRUNCATED_DATA, "short chunk header")
+            csize = _U32.unpack(hdr)[0]
+            raw = inp.read(4)
+            if len(raw) != 4:
+                raise Bz3Error(BZ3_ERR_TRUNCATED_DATA, "short chunk header")
+            osize = _U32.unpack(raw)[0]
+            if csize > cap or osize > cap:
+                raise Bz3Error(BZ3_ERR_MALFORMED_HEADER, "inconsistent chunk header")
+            payload = inp.read(csize)
+            if len(payload) != csize:
+                raise Bz3Error(BZ3_ERR_TRUNCATED_DATA, "short chunk payload")
         yield csize, osize, payload
 
 
@@ -94,6 +102,7 @@ def compress_file(
     quirk per the user's -j flag; None derives it from batch_size.
     """
     eng = engine if engine is not None else DeviceEngine(device)
+    timer = getattr(eng, "timer", None)
     bytes_read = 0
     bytes_written = write_file_header(out, block_size)
     pending: list[bytes] = []
@@ -102,17 +111,20 @@ def compress_file(
         nonlocal bytes_written
         if not pending:
             return
-        for orig, payload in zip(pending, eng.encode_blocks(pending, block_size)):
-            out.write(_U32.pack(len(payload)))
-            out.write(_U32.pack(len(orig)))
-            out.write(payload)
-            bytes_written += 8 + len(payload)
+        payloads = eng.encode_blocks(pending, block_size)
+        with host_span(timer, "container/encode/write"):
+            for orig, payload in zip(pending, payloads):
+                out.write(_U32.pack(len(payload)))
+                out.write(_U32.pack(len(orig)))
+                out.write(payload)
+                bytes_written += 8 + len(payload)
         pending.clear()
 
     if feof_block is None:
         feof_block = batch_size >= 2
     while True:
-        chunk = inp.read(block_size)
+        with host_span(timer, "container/encode/read"):
+            chunk = inp.read(block_size)
         if not chunk and not feof_block:
             break
         bytes_read += len(chunk)
@@ -143,6 +155,7 @@ def decompress_file(
     (``engine.stages``), which writes what its stage chain produced.
     ``test_only`` writes nothing and counts the bytes it would write."""
     eng = engine if engine is not None else DeviceEngine(device)
+    timer = getattr(eng, "timer", None)
     block_size = read_file_header(inp, recover=recover)
     bytes_read = 9
     bytes_written = 0
@@ -168,15 +181,16 @@ def decompress_file(
             if not recover:
                 raise
             results = [recover_one(p, o) for p, o in pending]
-        for (_, osize), data in zip(pending, results):
-            if out is not None and not test_only:
-                out.write(data[:osize])
-                bytes_written += min(len(data), osize)
-            else:
-                bytes_written += osize
+        with host_span(timer, "container/decode/write"):
+            for (_, osize), data in zip(pending, results):
+                if out is not None and not test_only:
+                    out.write(data[:osize])
+                    bytes_written += min(len(data), osize)
+                else:
+                    bytes_written += osize
         pending.clear()
 
-    for csize, osize, payload in iter_chunks(inp, block_size):
+    for csize, osize, payload in iter_chunks(inp, block_size, timer):
         bytes_read += 8 + csize
         pending.append((payload, osize))
         if len(pending) >= max(1, batch_size):

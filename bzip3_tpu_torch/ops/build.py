@@ -34,6 +34,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -63,6 +64,9 @@ HOST_SOURCES = [os.path.join(CSRC, f) for f in ("host_stages.cpp", "host_bwt.cpp
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# Seconds each library of this process took to build (only where it was
+# built) and to load, by name: {"kernels": {"build": s, "load": s}}.
+LOADS: dict[str, dict[str, float]] = {}
 
 
 class BuildError(RuntimeError):
@@ -144,15 +148,21 @@ def _load(name: str, so: str, sources: list[str], compile_fn, headers=()) -> cty
             return lib
         if not sources:
             raise BuildError(f"no sources for {name} under {CSRC}")
+        secs = {}
         if so != PREBUILT_HOST and _stale(so, [*sources, *headers]):
+            t0 = time.perf_counter()
             try:
                 compile_fn(so, sources)
             except OSError as e:  # an unwritable build directory
                 raise BuildError(f"cannot build {so}: {e}") from e
+            secs["build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         try:
             lib = ctypes.CDLL(so)
         except OSError as e:
             raise BuildError(f"cannot load {so}: {e}") from e
+        secs["load"] = time.perf_counter() - t0
+        LOADS[name] = secs
         _libs[name] = lib
         return lib
 

@@ -73,7 +73,16 @@ Wave scheduling (the JAX package's ``DevicePipeline``, pipeline.py:95-112,
   next group runs.  The C++ passes release the interpreter lock in their
   ctypes calls; pool threads touch bytes only, never torch.  The
   ``encode/host_prepass`` and ``decode/host_post`` stages measure the
-  wait for a wave's futures, not the passes themselves.
+  wait for a wave's futures; the passes themselves are the timer's
+  spans ``pool/encode/{crc,rle,lzp,difficulty}`` and
+  ``pool/decode/{lzp,rle,crc}`` (``pool/encode/bwt`` the hybrid's
+  SA-IS), thread-seconds summed over the pool.
+
+While the timer is on it also counts (``StageTimer.add``, from values
+already on the host): ``<encode|decode>/<route>/<rle|lzp>_<kept|rejected>``
+rows by route (``pool``, ``chain`` or ``oversize``), ``*/literal_blocks``,
+``*/waves``, ``encode/bwt_groups``, ``decode/inverse_groups``,
+``*/chain_groups`` and ``encode/reencoded_rows``.
 
 A wave's device work runs in its cores, ``encode_core_fn`` and
 ``decode_core_fn``, which a sharded pipeline (``parallel/sharding.py``)
@@ -129,6 +138,8 @@ from .utils.profiling import StageTimer
 
 _U32 = struct.Struct("<I")
 _S32 = struct.Struct("<i")
+# The timer of a caller that gives none: off, so it records nothing.
+_QUIET = StageTimer(enabled=False)
 
 # Rows a wave on the CPU, where the plain versions run a wave's rows in
 # lockstep: the JAX package's wave at small widths (pipeline.py:536).
@@ -399,14 +410,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def host_prepass(data: bytes):
+def host_prepass(data: bytes, timer: StageTimer = _QUIET):
     """RLE then LZP, each kept only if it shrinks the block
-    (src/libbz3.c:609-621).  Returns (model, lzp_size, rle_size, cur)."""
+    (src/libbz3.c:609-621), each pass a span ``pool/encode/rle`` /
+    ``pool/encode/lzp`` on ``timer``.  Returns (model, lzp_size,
+    rle_size, cur)."""
     model, lzp_size, rle_size, cur = 0, -1, -1, data
-    r = host.rle_encode(cur)
+    with timer.span("pool/encode/rle"):
+        r = host.rle_encode(cur)
     if len(r) < len(cur):
         cur, rle_size, model = r, len(r), model | 4
-    l = host.lzp_encode(cur)
+    with timer.span("pool/encode/lzp"):
+        l = host.lzp_encode(cur)
     if l is not None and len(l) < len(cur):
         cur, lzp_size, model = l, len(l), model | 2
     return model, lzp_size, rle_size, cur
@@ -632,6 +647,8 @@ class DevicePipeline:
             else:
                 rows.append((i, data))
         waves = self._waves(rows, lambda r: len(r[1]))
+        t.add("encode/literal_blocks", len(blocks) - len(rows))
+        t.add("encode/waves", len(waves))
         if self.device_prepass:
             for wave in waves:
                 self._encode_wave_device(wave, out)
@@ -649,10 +666,17 @@ class DevicePipeline:
 
     def _prepass_row(self, data: bytes):
         """A pool task: (crc or None, model, lzp_size, rle_size, cur,
-        bwt_difficulty(cur)) of one block."""
-        crc = host.crc32(data) if self.host_crc else None
-        model, lzp_size, rle_size, cur = host_prepass(data)
-        return crc, model, lzp_size, rle_size, cur, bwt_difficulty(cur)
+        bwt_difficulty(cur)) of one block, each pass a span
+        ``pool/encode/<pass>``."""
+        t = self.timer
+        crc = None
+        if self.host_crc:
+            with t.span("pool/encode/crc"):
+                crc = host.crc32(data)
+        model, lzp_size, rle_size, cur = host_prepass(data, t)
+        with t.span("pool/encode/difficulty"):
+            diff = bwt_difficulty(cur)
+        return crc, model, lzp_size, rle_size, cur, diff
 
     def _encode_wave(self, wave: list, metas: list, out: list[bytes]) -> None:
         """Host-prepass rows in order of difficulty through the encode
@@ -694,7 +718,9 @@ class DevicePipeline:
         n = _round_up(max(sizes), 256)
         cur = torch.zeros((len(raws), n), dtype=torch.uint8, device=self.device)
         cols = defaultdict(list)
-        for s, e, w in _row_groups(sizes, chain_row_groups(len(raws), n, self.device), n):
+        groups = _row_groups(sizes, chain_row_groups(len(raws), n, self.device), n)
+        t.add("encode/chain_groups", len(groups))
+        for s, e, w in groups:
             with t.stage("encode/h2d"):
                 orig, orig_lens = _upload(raws[s:e], self.device)
             cur[s:e, :w], *got = chain_rle(orig, orig_lens, t)
@@ -711,15 +737,16 @@ class DevicePipeline:
         self._assemble([i for i, _ in wave],
                        run_core(self._code_rows(cur, cur_lens, meta, t, sizes), t), out)
 
-    @staticmethod
-    def _bwt_groups(cur, lens, sizes: list[int]):
+    def _bwt_groups(self, cur, lens, sizes: list[int]):
         """The forward BWT of rows [K, N] of ``sizes`` bytes group by
         group (``bwt_row_groups``) into one U [K, N] and index [K] (a
         generator for ``run_core``, one ``encode/bwt`` stage a group)."""
         k, n = cur.shape
         u = torch.zeros_like(cur)
         idx = torch.empty((k,), dtype=torch.int32, device=cur.device)
-        for s, e, w in _row_groups(sizes, bwt_row_groups(k, n, cur.device), n):
+        groups = _row_groups(sizes, bwt_row_groups(k, n, cur.device), n)
+        self.timer.add("encode/bwt_groups", len(groups))
+        for s, e, w in groups:
             yield "encode/bwt"
             u[s:e, :w], idx[s:e] = bwt_forward_batch(cur[s:e, :w].contiguous(), lens[s:e])
         return u, idx
@@ -763,10 +790,26 @@ class DevicePipeline:
     def _assemble(self, idxs: list[int], res: dict, out: list[bytes]) -> None:
         """The blocks' bytes from an encode core's columns, in block order."""
         self.reencoded_rows += res["reencoded"]
+        self.timer.add("encode/reencoded_rows", res["reencoded"])
+        self._count_models("encode", res["model"])
         with self.timer.stage("encode/assemble"):
             for j, i in enumerate(idxs):
                 out[i] = _block_bytes(res["crc"][j], res["idx"][j], res["model"][j],
                                       res["lzp"][j], res["rle"][j], res["body"][j])
+
+    def _count_models(self, direction: str, models: list[int]) -> None:
+        """Rows whose RLE (model bit 4) and LZP (bit 2) were kept and
+        rejected, by route: ``<direction>/<route>/<rle|lzp>_<kept|rejected>``,
+        the route ``pool`` (the host passes), ``chain`` (the device
+        prepass) or ``oversize``."""
+        t = self.timer
+        if not t.enabled:
+            return
+        route = "oversize" if self.oversize else "chain" if self.device_prepass else "pool"
+        for bit, name in ((4, "rle"), (2, "lzp")):
+            kept = sum(1 for m in models if m & bit)
+            t.add(f"{direction}/{route}/{name}_kept", kept)
+            t.add(f"{direction}/{route}/{name}_rejected", len(models) - kept)
 
     # -- decode ---------------------------------------------------------
 
@@ -805,6 +848,9 @@ class DevicePipeline:
                 else:
                     rows.append((i, hdr, block[hdr.header_size() :], sbb))
         waves = self._waves(rows, lambda r: max(r[3], len(r[2])))
+        t.add("decode/literal_blocks", len(blocks) - len(rows))
+        t.add("decode/waves", len(waves))
+        self._count_models("decode", [r[1].model for r in rows])
         pool = None if self.device_prepass else self._pool()
         try:
             lo = 0
@@ -894,19 +940,26 @@ class DevicePipeline:
         """A pool task: un-LZP and un-RLE of one row in the reference's
         order (src/libbz3.c:760-800), then its CRC when ``crc``.  Returns
         (error code or 0, bytes, crc or None): a failed stage is a CRC
-        error, a length past the block size a malformed header."""
+        error, a length past the block size a malformed header.  Each
+        pass is a span ``pool/decode/<pass>``."""
+        t = self.timer
         cur = row
         if model & 2:
-            cur = host.lzp_decode(cur, bnd)
+            with t.span("pool/decode/lzp"):
+                cur = host.lzp_decode(cur, bnd)
             if cur is None:
                 return BZ3_ERR_CRC, None, None
         if model & 4:
-            cur = host.rle_decode(cur, orig_size)
+            with t.span("pool/decode/rle"):
+                cur = host.rle_decode(cur, orig_size)
             if cur is None:
                 return BZ3_ERR_CRC, None, None
         if len(cur) > self.block_size:
             return BZ3_ERR_MALFORMED_HEADER, None, None
-        return 0, cur, host.crc32(cur) if crc else None
+        if not crc:
+            return 0, cur, None
+        with t.span("pool/decode/crc"):
+            return 0, cur, host.crc32(cur)
 
     def _decode_cm(self, payloads: list[bytes], sizes: list[int], indices: list[int], device):
         """Payloads up and one K2 launch over every row (a generator for
@@ -918,10 +971,11 @@ class DevicePipeline:
         yield "decode/cm"
         return cm_cuda.cm_decode(pay, plens, sbb, _round_up(max(sizes), 256)), sbb, idx
 
-    @staticmethod
-    def _inverse_plan(u, sizes: list[int]) -> list[tuple[int, int, int]]:
+    def _inverse_plan(self, u, sizes: list[int]) -> list[tuple[int, int, int]]:
         k, n = u.shape
-        return _row_groups(sizes, inverse_row_groups(k, n, u.device), n)
+        groups = _row_groups(sizes, inverse_row_groups(k, n, u.device), n)
+        self.timer.add("decode/inverse_groups", len(groups))
+        return groups
 
     def decode_steps(self, payloads: list[bytes], sizes: list[int], indices: list[int], device,
                      on_rows=None):
@@ -969,6 +1023,7 @@ class DevicePipeline:
         final = torch.empty_like(cur)
         final_lens, rle_ok = torch.empty_like(cur_lens), torch.empty_like(lzp_ok)
         g = chain_row_groups(len(wave), width, self.device)
+        t.add("decode/chain_groups", -(-len(wave) // g))
         for s in range(0, len(wave), g):
             e = min(len(wave), s + g)
             final[s:e], final_lens[s:e], rle_ok[s:e] = chain_unrle(
@@ -998,14 +1053,18 @@ class DevicePipeline:
     # -- oversize blocks: host-BWT hybrid ---------------------------------
 
     def _oversize_prep(self, data: bytes):
-        """Host half of an oversize encode: CRC, RLE/LZP gating, SA-IS.
-        (crc, None) for a literal, else (crc, (model, lzp_size, rle_size,
-        size before the BWT, U, primary index))."""
-        crc = host.crc32(data)
+        """Host half of an oversize encode: CRC, RLE/LZP gating, SA-IS,
+        each a span ``pool/encode/<pass>`` (the SA-IS ``bwt``).  (crc,
+        None) for a literal, else (crc, (model, lzp_size, rle_size, size
+        before the BWT, U, primary index))."""
+        t = self.timer
+        with t.span("pool/encode/crc"):
+            crc = host.crc32(data)
         if len(data) < SMALL_BLOCK_THRESHOLD:
             return crc, None
-        model, lzp_size, rle_size, cur = host_prepass(data)
-        u, idx = host.bwt_forward(cur)
+        model, lzp_size, rle_size, cur = host_prepass(data, t)
+        with t.span("pool/encode/bwt"):
+            u, idx = host.bwt_forward(cur)
         return crc, (model, lzp_size, rle_size, len(cur), u, idx)
 
     def _encode_blocks_oversize(self, blocks: list[bytes]) -> list[bytes]:
@@ -1023,9 +1082,11 @@ class DevicePipeline:
                 if i + 1 < len(blocks):
                     nxt = ex.submit(self._oversize_prep, blocks[i + 1])
                 if meta is None:
+                    t.add("encode/literal_blocks")
                     out.append(_U32.pack(crc) + _S32.pack(-1) + data)
                     continue
                 model, lzp_size, rle_size, sbb, u, idx = meta
+                self._count_models("encode", [model])
                 with t.stage("encode/cm"):
                     row, lens = _upload([u], self.device)
                     payload, plens = cm_cuda.cm_encode_resumable(row, lens)
@@ -1035,6 +1096,7 @@ class DevicePipeline:
                         # never at the full width; exact re-encode as the
                         # default path does
                         self.reencoded_rows += 1
+                        t.add("encode/reencoded_rows")
                         payload, plens = cm_cuda.cm_encode_resumable(row, lens, plen)
                     body = payload[0, :plen].cpu().numpy().tobytes()
                 with t.stage("encode/assemble"):
@@ -1077,11 +1139,13 @@ class DevicePipeline:
         for block, orig_size in blocks:
             hdr, sbb = self._check_header(block, orig_size, bnd)
             if hdr.is_literal:
+                t.add("decode/literal_blocks")
                 data = block[8:]
                 if host.crc32(data) != hdr.crc32:
                     raise Bz3Error(BZ3_ERR_CRC)
                 finals.append(data)
                 continue
+            self._count_models("decode", [hdr.model])
             u = self._cm_decode_to_host(block[hdr.header_size() :], sbb)
             with t.stage("decode/bwt"):
                 cur = host.bwt_inverse(u, hdr.bwt_idx)

@@ -232,11 +232,11 @@ def test_next_waves_prepass_runs_during_a_wave(monkeypatch):
     core_running, next_prepass, seen = threading.Event(), threading.Event(), []
     real_prepass = pipeline.host_prepass
 
-    def prepass(data):
+    def prepass(data, *args):
         if data == blocks[2]:
             next_prepass.set()
             seen.append(("prepass", core_running.wait(timeout=20)))
-        return real_prepass(data)
+        return real_prepass(data, *args)
 
     monkeypatch.setattr(pipeline, "host_prepass", prepass)
     pipe = DevicePipeline(BS, device="cpu", threads=2)
