@@ -46,24 +46,37 @@
 //   coder; named barriers hand over whole slots.  Bound: the coder's
 //   register chain per bit.
 // - K2: the next context depends on the decoded bit, so the model
-//   cannot run ahead across bytes.  At each byte's start thread j of 256
-//   predicts node j from the tables as they stand (each thread reads and
-//   writes only its own node's counters and SSE row, so no barrier sits
-//   between a byte's update and the next byte's predictions) into a
-//   256-word tree in shared memory; warp 0 walks the 8 bits with both
-//   children's factors loaded while a bit is coded, then each thread on
-//   the byte's path updates its node.  Warp 0 predicts nodes 1-31
-//   itself (and each of its lanes the root as well, so bit 0 waits for
-//   no hand-off) and walks 4 bits before it waits for nodes 32-255.
-//   Bound: the walk's 8 coder steps plus one node prediction per byte.
+//   cannot run ahead across bytes; it predicts every byte the current one
+//   may still become.  Warp 0 walks the 8 bits and nothing else: each bit
+//   the split, the compare with code, the renorm, and two LDS issued while
+//   the bit is coded, the next code bytes (from a ring of the payload whose
+//   entry p holds bytes p..p+3) and both children's split factors.  Its
+//   loads never touch global memory and it predicts nothing.  Thirteen
+//   helper warps keep the factors ahead of it.  Warps 1-8 predict nodes
+//   16-255 of the byte into a 256-word tree once the byte before is known.
+//   Warps 9, 10 and 11-13 predict the next byte's root, nodes 2-3 and
+//   nodes 4-15 for each candidate byte (32, 16 and 8 of them) once warp 0
+//   has walked bits 0-2, 0-3 and 0-4.  Warp 10 also fills the ring.  So no
+//   node prediction and no global load sits between two bytes: at bit 7
+//   warp 0 picks the next root from the two candidates left.  A
+//   speculating warp owns its nodes: it predicts them for the byte as it
+//   stands, and once their bits are walked one lane a node updates them,
+//   before the candidates read them.  Each hand-off is a named barrier
+//   with warp 0: it arrives after bits 2, 3 and 4 (kBits3-5, the node
+//   reached in pref) and after bit 7 (kByteDone, the byte and ip in cur),
+//   and it syncs before the loads that need the helpers (kPairIn at the
+//   byte's start, kLowIn at bit 1, kTreeFull at bit 3, kRootIn at bit 7).
+//   Bound: the coder chain, ~63 cycles a bit; warp 0 alone runs its walk
+//   in ~82, and the barriers and the helpers' work beside it bring that to
+//   ~128 (PERF.md, section 6).
 // Neither coder branches or diverges per bit: every lane of a coder warp
 // runs the same registers and stores the same bytes, the counter updates
-// select between both outcomes and their addresses, and K2 takes its
-// code bytes from a 64-byte window of the payload that warp 0 stages in
-// shared memory at each byte's start.  The split is one IMAD.HI
-// (split_hi).  What is left on a bit's path: the split, the select of
-// low/high, the renorm count (FLO) and the shifts; in K2 also the compare
-// with code and the pick of the child's factor.
+// select between both outcomes and their addresses, and K2's walk takes a
+// uniform branch only per byte, to a copy without the exhaustion rule
+// while 32 code bytes are left.  The split is one IMAD.HI (split_hi).
+// What is left on a bit's path: the split, the select of low/high, the
+// renorm count (FLO) and the shifts; in K2 also the compare with code and
+// the pick of the child's factor.
 // K3a runs K1's body (encode_steps) and K3b/K3c K2's (decode_steps), as
 // the JAX package builds them from one factory each; a resumable kernel
 // adds only a prologue (fresh tables and registers when start is 0,
@@ -98,12 +111,15 @@ constexpr int kSlotBytes = 256;
 // none to make (update_if).
 constexpr int kRingBytes = kSlots * kSlotBytes * 32;
 constexpr int kEncSmemBytes = kSmemBytes + kRingBytes + 32 * 8;  // 182,016
-// K2's tree of the 256 nodes' split factors, the 16-word payload window,
-// the decoded byte (16 bytes) and 8 bytes a thread for update_if.
-constexpr int kTreeOff = kSmemBytes, kWinOff = kTreeOff + 256 * 4, kCurOff = kWinOff + 16 * 4;
-constexpr int kJunkOff = kCurOff + 16;
-constexpr int kDecSmemBytes = kJunkOff + 256 * 8;  // 152,144
-constexpr int kTreeFull = 1, kByteDone = 2;  // K2's named barriers
+// K2's tree of the 256 nodes' split factors, the next byte's candidates
+// (the root's 32, nodes 2-3's 16 pairs, nodes 4-15's 8 rows of 16 words),
+// the payload ring of 256 words, the decoded byte and ip (two slots, by
+// the byte's parity), the nodes walked after bits 2-4, and 8 bytes a
+// thread for update_if.
+constexpr int kTreeOff = kSmemBytes, kRingOff = kTreeOff + (256 + 32 + 32 + 128) * 4;
+constexpr int kJunkOff = kRingOff + (256 + 4 + 4) * 4;
+constexpr int kDecWarps = 14, kDecThreads = 32 * kDecWarps;  // K2's warps (decode_steps)
+constexpr int kDecSmemBytes = kJunkOff + kDecThreads * 8;  // 155,424
 
 struct Model {
     uint16_t *c0, *c1, *c2;
@@ -379,17 +395,19 @@ cm_encode_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_w
                  warp, lane, r, true, out_lens + row);
 }
 
-// K2's payload reader.  At each byte's start warp 0 stages 16 words of
-// the payload, big-endian, from the word that holds code byte ip on
-// (bytes past n_in 0), into shared memory: a byte's 8 bits read at most
-// 32 code bytes.  At each bit's start peek() takes code bytes ip..ip+3
-// from there, so the loads overlap the bit's arithmetic, and shift_in
-// shifts the bit's k of them into code.  No branch.  Offsets are
-// absolute in the row, so a resumed row starts at its saved ip.
-struct CodeIn {
+// K2's payload ring.  Entry p % 256 holds code bytes p .. p+3 big-endian
+// (bytes past n_in 0), so that a bit's peek is one LDS at 4 * ip masked.
+// The ring warp writes 32 entries ahead when the ring holds fewer than
+// 128 past ip; warp 0 only reads.
+struct Payload {
     const uint32_t *src;
-    uint32_t *win;
-    int32_t n_in, wlast, ip, base;
+    int32_t n_in, wlast;
+
+    __device__ __forceinline__ void init(const uint8_t *row, int32_t n) {
+        src = reinterpret_cast<const uint32_t *>(row);
+        n_in = n;
+        wlast = n > 0 ? (n - 1) >> 2 : 0;
+    }
 
     // Big-endian word w of the payload, its bytes past n_in 0 (the load
     // stays inside the row's first n_in bytes, or its first word).
@@ -399,133 +417,223 @@ struct CodeIn {
         return v >= 4 ? x : (v <= 0 ? 0u : x & (0xFFFFFFFFu << (32 - 8 * v)));
     }
 
-    __device__ __forceinline__ void init(const uint8_t *row, int32_t n, uint32_t *window,
-                                         int32_t ip0) {
-        src = reinterpret_cast<const uint32_t *>(row);
-        win = window;
-        n_in = n;
-        wlast = n > 0 ? (n - 1) >> 2 : 0;
-        ip = ip0;
-    }
-
-    // The window of the next byte; every lane of warp 0 stores a word
-    // (lanes 16-31 the same as 0-15).  The warp syncs before peek().
-    __device__ __forceinline__ void stage(uint32_t lane) {
-        base = ip & ~3;
-        win[lane & 15] = word((base >> 2) + (int32_t)(lane & 15));
-    }
-
-    // Code bytes ip..ip+3, big-endian.
-    __device__ __forceinline__ uint32_t peek() const {
-        const int32_t o = ip - base;
-        return __funnelshift_l(win[(o >> 2) + 1], win[o >> 2], 8 * (o & 3));
-    }
-
-    // 8 times the code bytes left at ip, at most 4.
-    __device__ __forceinline__ int32_t valid8() const { return 8 * min(max(n_in - ip, 0), 4); }
-
-    // code shifted left by sh bits (sh / 8 bytes) with the first sh / 8
-    // bytes of next (peek() and valid8() at the bit's start) shifted in.  A
-    // byte past n_in adds 0xFFFFFFFF instead (src/libbz3.c:346,437-440):
-    // for the last m of the bytes that takes 0x01..01 (m bytes of 1) off
-    // what the zero bytes give.
-    __device__ __forceinline__ uint32_t shift_in(uint32_t code, uint32_t next, uint32_t sh,
-                                                 int32_t e8) {
-        const uint32_t m8 = (uint32_t)max((int32_t)sh - e8, 0);
-        ip += (int32_t)(sh >> 3);
-        return __funnelshift_lc(next, code, sh) - __funnelshift_lc(0x01010101u, 0u, m8);
-    }
-
-    // The decoder's first four code bytes, by warp 0 at a row's start.
-    __device__ __forceinline__ uint32_t first_code(uint32_t lane) {
-        stage(lane);
-        __syncwarp();
-        const uint32_t code = shift_in(0, peek(), 32, valid8());
-        __syncwarp();
-        return code;
+    // Code bytes p .. p+3.
+    __device__ __forceinline__ uint32_t entry(int32_t p) const {
+        return __funnelshift_l(word((p >> 2) + 1), word(p >> 2), 8 * (p & 3));
     }
 };
+
+// 8 times the code bytes left at ip, at most 4.
+__device__ __forceinline__ int32_t valid8(int32_t n_in, int32_t ip) {
+    return 8 * min(max(n_in - ip, 0), 4);
+}
+
+// Node k's split factor << 14 as the byte after this one predicts it if
+// this one is cand: prev is this byte's c1, run its run counter.
+__device__ __forceinline__ uint32_t predict_next(const Model &m, uint32_t k, uint32_t cand,
+                                                 uint32_t prev, int32_t run) {
+    const uint32_t f = (cand == prev ? run + 1 : 0) > 2;
+    return predict(m, m.c1 + (cand << 8), m.c1 + (prev << 8), k, f).scale << 14;
+}
+
+// K2's warps.  Warp 0 walks and does nothing else; the rest predict:
+// warps 1-8 node (thread - 32) of each byte into the tree (nodes 16-255
+// are read, and updated, from there); warp 9 the next byte's root for its
+// 32 candidates once warp 0 has walked 3 bits; warp 10 nodes 2-3 for 16
+// candidates after 4 bits, and fills the payload ring; warps 11-13 nodes
+// 4-15 for 8 candidates after 5 bits.  A speculating warp owns its nodes:
+// it predicts them for the byte as it stands, and once their bits are
+// walked one lane a node updates it, so the candidates read the tables
+// as the next byte will.
+constexpr int kRootWarp = 9, kPairWarp = 10, kLowWarp = 11;
+// Named barriers a byte, with warp 0 (arrive: it hands over; sync: it
+// waits) and their thread counts.
+enum { kTreeFull = 1, kByteDone, kBits3, kBits4, kBits5, kRootIn, kPairIn, kLowIn };
+constexpr int kTreeCount = 32 + 256, kDoneCount = kDecThreads, kRootCount = 64,
+              kPairCount = 64, kLowCount = 32 + 96;
+
+// One byte of a speculating warp, whose lane predicts node k for the
+// byte (r1, r2, run as it stands) and then, once warp 0 has walked bits
+// 0..b (nd, from pref), has node k updated by lane upd and predicts it for
+// the next byte if that is the candidate whose last 7 - b bits are x,
+// into *out.  in_bar / out_bar are its hand-offs with warp 0.
+__device__ __forceinline__ void speculate_byte(const Model &m, const uint32_t *pref, uint32_t k,
+                                               uint32_t x, int b, int in_bar, int out_bar,
+                                               int count, bool upd, uint32_t *out,
+                                               uint16_t *r1, const uint16_t *r2, uint32_t c1,
+                                               int32_t run, uint16_t *junk) {
+    const Pred pq = predict(m, r1, r2, k, run > 2);
+    bar_sync(in_bar, count);
+    const uint32_t nd = *pref;
+    const int32_t level = 31 - __clz(k);
+    update_if(m, r1, k, pq, (nd >> (b - level)) & 1u, upd && (nd >> (b + 1 - level)) == k, junk);
+    __syncwarp();  // the update before the candidates read node k
+    const uint32_t cand = ((nd & ((2u << b) - 1)) << (7 - b)) | x;
+    *out = predict_next(m, k, cand, c1, run);
+    bar_arrive(out_bar, count);
+}
+
+// Warp 0's registers: the range, the code, the root's factor, 4 * ip.
+struct Walk {
+    uint32_t low, high, code, s, ip4;
+};
+
+// One byte of warp 0's walk.  Fast: the payload holds 32 bytes past ip,
+// so no bit of the byte runs out of input and the exhaustion rule is
+// left out.  Each bit: the split at s, the compare with code, the renorm,
+// the shift of code bytes ip.. (one LDS from the ring) into code, and s
+// from the children's factors loaded while the bit is coded: nodes 2-3
+// and 4-15 from the candidates of this byte's c1, 16-255 from the tree,
+// the next root from its two candidates left after bit 6.  After bits 2,
+// 3 and 4 the node reached goes to pref and its warps are let go.
+template <bool kFast>
+__device__ __forceinline__ uint32_t walk_byte(const uint32_t *tree, const uint32_t *roots,
+                                              const uint32_t *pairs, const uint32_t *lows,
+                                              const uint32_t *ring, uint32_t *pref,
+                                              uint32_t *cur, int32_t n_in, uint32_t c1,
+                                              bool later, uint8_t *out, Walk &w) {
+    const unsigned char *rb = reinterpret_cast<const unsigned char *>(ring);
+    const uint32_t *lo = lows + 16 * (c1 & 7u);
+    uint32_t low = w.low, high = w.high, code = w.code, s = w.s, ip4 = w.ip4, nd = 1;
+    uint2 kids;
+    if (later) bar_sync(kPairIn, kPairCount);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+        if (b == 0) kids = *reinterpret_cast<const uint2 *>(pairs + 2 * (c1 & 15u));
+        if (b == 1 && later) bar_sync(kLowIn, kLowCount);
+        if (b == 1 || b == 2) kids = *reinterpret_cast<const uint2 *>(lo + 2 * nd);
+        if (b == 3) bar_sync(kTreeFull, kTreeCount);
+        if (b >= 3 && b < 7) kids = *reinterpret_cast<const uint2 *>(tree + 2 * nd);
+        if (b == 7) {
+            bar_sync(kRootIn, kRootCount);
+            kids = *reinterpret_cast<const uint2 *>(roots + 2 * (nd & 15u));
+        }
+        const uint32_t next = *reinterpret_cast<const uint32_t *>(rb + (ip4 & 1020u));
+        const int32_t e8 = kFast ? 32 : valid8(n_in, (int32_t)(ip4 >> 2));
+        const uint32_t mid = low + split_hi(low, high, s);
+        const uint32_t bit = code <= mid;
+        if (bit)
+            high = mid;
+        else
+            low = mid + 1;
+        const uint32_t sh = renorm_shift(low, high);
+        renorm(low, high, sh);
+        // a byte past n_in shifts in 0xFF (src/libbz3.c:346,437-440): for
+        // the last m of those taken, 0x01..01 (m bytes of 1) off the 0s
+        code = __funnelshift_lc(next, code, sh);
+        if (!kFast) code -= __funnelshift_lc(0x01010101u, 0u, (uint32_t)max((int32_t)sh - e8, 0));
+        ip4 += sh >> 1;
+        nd = 2 * nd + bit;
+        s = bit ? kids.y : kids.x;
+        if (b == 2) pref[0] = nd, bar_arrive(kBits3, kRootCount);
+        if (b == 3) pref[1] = nd, bar_arrive(kBits4, kPairCount);
+        if (b == 4) pref[2] = nd, bar_arrive(kBits5, kLowCount);
+    }
+    const uint32_t c = nd & 255u;
+    *out = (uint8_t)c;  // the same byte from every lane: one store
+    *reinterpret_cast<uint2 *>(cur) = make_uint2(c, ip4 >> 2);
+    bar_arrive(kByteDone, kDoneCount);
+    w = Walk{low, high, code, s, ip4};
+    return c;
+}
 
 // K2's body, which K3b and K3c share: the CTA decodes the next n bytes of
 // a row into dst[0, n) from its payload src[0, n_in), resuming at code
 // byte r.ip, or at the row's start (first: the first four code bytes
-// are read).  Thread j predicts node j of every byte (thread 0: node 0,
-// never visited); the tree holds each node's split factor << 14, ready
-// for split_hi.  Every thread carries the history; warp 0 also the
-// range, the code and the payload reader.
+// are read).  The tree holds each node's split factor << 14, ready for
+// split_hi; the candidates' factors too.  Every warp carries the history;
+// warp 0 also the range and the code.
 __device__ __forceinline__ void decode_steps(const Model &m, unsigned char *smem,
                                              const uint8_t *src, int32_t n_in, bool first,
                                              uint8_t *dst, int32_t n, DecRegs &r) {
     uint32_t *tree = reinterpret_cast<uint32_t *>(smem + kTreeOff);
-    uint32_t *cur = reinterpret_cast<uint32_t *>(smem + kCurOff);
-    const uint32_t node = threadIdx.x, warp = node >> 5;
-    uint16_t *junk = reinterpret_cast<uint16_t *>(smem + kJunkOff) + 4 * node;
-    const int32_t level = 31 - __clz(node);  // -1 for node 0
-    uint32_t low = r.low, high = r.high, code = r.code;
-    CodeIn rd;
-    if (warp == 0) {
-        rd.init(src, n_in, reinterpret_cast<uint32_t *>(smem + kWinOff), r.ip);
-        if (first) code = rd.first_code(node);
+    uint32_t *roots = tree + 256, *pairs = roots + 32, *lows = pairs + 32;
+    uint32_t *ring = reinterpret_cast<uint32_t *>(smem + kRingOff);
+    uint32_t *cur = ring + 256, *pref = cur + 4;
+    const uint32_t tid = threadIdx.x, warp = tid >> 5, lane = tid & 31u;
+    uint16_t *junk = reinterpret_cast<uint16_t *>(smem + kJunkOff) + 4 * tid;
+    Payload pl;
+    pl.init(src, n_in);
+    // this warp's speculated node and candidate, and where they go
+    uint32_t k = 1, x = lane, *out = roots + lane;
+    if (warp == kPairWarp) k = 2 + (lane >> 4), x = lane & 15u, out = pairs + 2 * x + k - 2;
+    if (warp >= kLowWarp) {
+        const uint32_t t = tid - 32 * kLowWarp;
+        k = 4 + (t >> 3), x = t & 7u, out = lows + 16 * x + k;
     }
+    // the next ring entry the ring warp writes
+    int32_t hi = r.ip + 160;
+    if (warp == kPairWarp)
+        for (int32_t p = r.ip + (int32_t)lane; p < hi; p += 32) ring[p & 255] = pl.entry(p);
+    if (warp >= kRootWarp) *out = predict_next(m, k, r.h.c1, r.h.c2, r.h.run);
+    __syncthreads();
+    Walk w{r.low, r.high, r.code, roots[0], 4u * (uint32_t)r.ip};
+    if (first) {  // the first four code bytes
+        const uint32_t m8 = (uint32_t)max(32 - valid8(n_in, r.ip), 0);
+        w.code = ring[r.ip & 255] - __funnelshift_lc(0x01010101u, 0u, m8);
+        w.ip4 += 16;
+    }
+    int32_t ip = (int32_t)(w.ip4 >> 2);
     uint32_t c1 = r.h.c1, c2 = r.h.c2;
     int32_t run = r.h.run;
     for (int32_t i = 0; i < n; ++i) {
         run = c1 == c2 ? run + 1 : 0;
         uint16_t *r1 = m.c1 + (c1 << 8);
         const uint16_t *r2 = m.c1 + (c2 << 8);
-        // every thread predicts the root too (no branch), so warp 0's
-        // bit 0 needs no hand-off; both before any store of this byte
-        const Pred pq = predict(m, r1, r2, node, run > 2);
-        uint32_t s = predict(m, r1, r2, 1, run > 2).scale << 14;
-        if (warp == 0) rd.stage(node);
-        tree[node] = pq.scale << 14;
+        uint32_t *cur_i = cur + 2 * (i & 1);
         uint32_t c;
         if (warp == 0) {
-            __syncwarp();
-            uint32_t nd = 1;
-#pragma unroll
-            for (int b = 0; b < 8; ++b) {
-                if (b == 4) bar_sync(kTreeFull, kThreads);  // nodes 32-255 are in
-                uint2 kids = make_uint2(0, 0);
-                if (b < 7) kids = *reinterpret_cast<const uint2 *>(tree + 2 * nd);
-                const uint32_t next = rd.peek();
-                const int32_t e8 = rd.valid8();
-                const uint32_t mid = low + split_hi(low, high, s);
-                const uint32_t bit = code <= mid;
-                if (bit)
-                    high = mid;
-                else
-                    low = mid + 1;
-                const uint32_t sh = renorm_shift(low, high);
-                renorm(low, high, sh);
-                code = rd.shift_in(code, next, sh, e8);
-                nd = 2 * nd + bit;
-                s = bit ? kids.y : kids.x;
-            }
-            c = nd & 255u;
-            dst[i] = (uint8_t)c;  // the same byte from every lane: one store
-            *cur = c;
-            bar_arrive(kByteDone, kThreads);
+            if (n_in - (int32_t)(w.ip4 >> 2) >= 32)
+                c = walk_byte<true>(tree, roots, pairs, lows, ring, pref, cur_i, n_in, c1, i > 0,
+                                    dst + i, w);
+            else
+                c = walk_byte<false>(tree, roots, pairs, lows, ring, pref, cur_i, n_in, c1, i > 0,
+                                     dst + i, w);
         } else {
-            bar_arrive(kTreeFull, kThreads);
-            bar_sync(kByteDone, kThreads);
-            c = *cur;
+            if (warp <= 8) {
+                const uint32_t node = tid - 32;
+                const int32_t level = 31 - __clz(node);
+                const Pred pq = predict(m, r1, r2, node, run > 2);
+                tree[node] = pq.scale << 14;
+                bar_arrive(kTreeFull, kTreeCount);
+                bar_sync(kByteDone, kDoneCount);
+                c = cur_i[0];
+                update_if(m, r1, node, pq, (c >> (7 - level)) & 1u,
+                          node >= 16 && ((256u | c) >> (8 - level)) == node, junk);
+            } else {
+                if (warp == kRootWarp)
+                    speculate_byte(m, pref, k, x, 2, kBits3, kRootIn, kRootCount, lane == 0, out,
+                                   r1, r2, c1, run, junk);
+                else if (warp == kPairWarp)
+                    speculate_byte(m, pref + 1, k, x, 3, kBits4, kPairIn, kPairCount, x == 0,
+                                   out, r1, r2, c1, run, junk);
+                else
+                    speculate_byte(m, pref + 2, k, x, 4, kBits5, kLowIn, kLowCount, x == 0, out,
+                                   r1, r2, c1, run, junk);
+                if (warp == kPairWarp && hi < ip + 128) {
+                    // entries seen by warp 0 two bytes on, past what it reads
+                    ring[(hi + (int32_t)lane) & 255] = pl.entry(hi + (int32_t)lane);
+                    hi += 32;
+                }
+                bar_sync(kByteDone, kDoneCount);
+                c = cur_i[0];
+                ip = (int32_t)cur_i[1];
+            }
         }
-        update_if(m, r1, node, pq, (c >> (7 - level)) & 1u,
-                  node != 0 && ((256u | c) >> (8 - level)) == node, junk);
-        // node 1's update before every lane's next root; the window's
-        // last reads before the next stage
-        if (warp == 0) __syncwarp();
         c2 = c1;
         c1 = c;
     }
-    r = DecRegs{{c1, c2, run}, low, high, code, rd.ip};
+    if (warp == 0 && n > 0) {  // the last byte's candidates are not read
+        bar_sync(kPairIn, kPairCount);
+        bar_sync(kLowIn, kLowCount);
+    }
+    r = DecRegs{{c1, c2, run}, w.low, w.high, w.code, (int32_t)(w.ip4 >> 2)};
 }
 
 // K2: decode out_lens[row] bytes of row blockIdx.x.  Input past
 // in_lens[row] (clamped to in_width) reads as 0xFFFFFFFF: an exhausted
 // stream shifts in (code << 8) - 1 (src/libbz3.c:346,437-440).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDecThreads)
 cm_decode_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_width,
                  const int32_t *__restrict__ in_lens, const int32_t *__restrict__ out_lens,
                  uint8_t *__restrict__ out, int64_t out_stride) {
@@ -583,7 +691,7 @@ cm_encode_resume_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64
 // buffer.  Rows decode out_lens[row] bytes, clamped to out_width.  The
 // first four code bytes are read in the first launch; a later launch
 // resumes the payload window at the saved ip.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDecThreads)
 cm_decode_resume_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int64_t in_width,
                         const int32_t *__restrict__ in_lens, const int32_t *__restrict__ out_lens,
                         int32_t out_width, uint8_t *__restrict__ out, int64_t out_stride,
@@ -634,7 +742,7 @@ extern "C" int bz3t_cm_decode(const uint8_t *in, int64_t in_stride, int64_t in_w
     cudaError_t e = cudaFuncSetAttribute(
         cm_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecSmemBytes);
     if (e != cudaSuccess) return (int)e;
-    cm_decode_kernel<<<rows, kThreads, kDecSmemBytes, (cudaStream_t)stream>>>(
+    cm_decode_kernel<<<rows, kDecThreads, kDecSmemBytes, (cudaStream_t)stream>>>(
         in, in_stride, in_width, in_lens, out_lens, out, out_stride);
     return (int)cudaGetLastError();
 }
@@ -659,7 +767,7 @@ extern "C" int bz3t_cm_decode_resume(const uint8_t *in, int64_t in_stride, int64
     cudaError_t e = cudaFuncSetAttribute(
         cm_decode_resume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecSmemBytes);
     if (e != cudaSuccess) return (int)e;
-    cm_decode_resume_kernel<<<rows, kThreads, kDecSmemBytes, (cudaStream_t)stream>>>(
+    cm_decode_resume_kernel<<<rows, kDecThreads, kDecSmemBytes, (cudaStream_t)stream>>>(
         in, in_stride, in_width, in_lens, out_lens, out_width, out, out_stride, out_rel, state,
         start, stop);
     return (int)cudaGetLastError();

@@ -6,11 +6,14 @@ for byte (tolerance 0).
 
 A CUDA kernel cannot run here, but the kernels' logic can: K1's ring of
 split factors between its model warp and its coder warp with the named
-barriers that hand slots over, K2's tree of node predictions, its walk
-and its payload window, both coders' closed-form renorm, the output cap
-and stream exhaustion; and K3a-K3c's launches of a few steps each, with
-the row's tables and registers carried in the state buffer.  A barrier protocol that would hang on the card aborts the
-emulation (a count that differs between arrivals, or 20 s of waiting).
+barriers that hand slots over, K2's tree of node predictions, its
+helper warps' candidates for the next byte and their named-barrier
+hand-offs with the walking warp, its payload ring, both coders'
+closed-form renorm, the output cap and stream exhaustion; and K3a-K3c's
+launches of a few steps each, with the row's tables and registers
+carried in the state buffer.  A barrier protocol that would hang on the
+card aborts the emulation (a count that differs between arrivals, or
+20 s of waiting).
 The emulation says nothing of speed or of the compiled SASS; the chip
 smoke test holds the kernels themselves against the plain versions.
 """
@@ -46,12 +49,14 @@ _EDITS = [
 _GLUE = """
 extern "C" void emu_cm_encode(const uint8_t *in, int64_t stride, const int32_t *lens,
                               uint8_t *out, int32_t out_width, int32_t *out_lens, int rows) {
+    blockDim.x = kThreads;
     emu_launch(rows, [&] {
         cm_encode_kernel(in, stride, stride, lens, out, out_width, out_width, out_lens);
     });
 }
 extern "C" void emu_cm_decode(const uint8_t *in, int64_t stride, const int32_t *in_lens,
                               const int32_t *out_lens, uint8_t *out, int64_t out_width, int rows) {
+    blockDim.x = kDecThreads;
     emu_launch(rows, [&] {
         cm_decode_kernel(in, stride, stride, in_lens, out_lens, out, out_width);
     });
@@ -59,6 +64,7 @@ extern "C" void emu_cm_decode(const uint8_t *in, int64_t stride, const int32_t *
 extern "C" void emu_cm_encode_resume(const uint8_t *in, int64_t stride, const int32_t *lens,
                                      uint8_t *out, int32_t out_width, int32_t *out_lens,
                                      uint8_t *state, int32_t start, int32_t stop, int rows) {
+    blockDim.x = kThreads;
     emu_launch(rows, [&] {
         cm_encode_resume_kernel(in, stride, stride, lens, out, out_width, out_width, out_lens,
                                 state, start, stop);
@@ -68,6 +74,7 @@ extern "C" void emu_cm_decode_resume(const uint8_t *in, int64_t stride, const in
                                      const int32_t *out_lens, int32_t out_width, uint8_t *out,
                                      int64_t out_stride, int32_t out_rel, uint8_t *state,
                                      int32_t start, int32_t stop, int rows) {
+    blockDim.x = kDecThreads;
     emu_launch(rows, [&] {
         cm_decode_resume_kernel(in, stride, stride, in_lens, out_lens, out_width, out, out_stride,
                                 out_rel, state, start, stop);
@@ -173,17 +180,36 @@ def test_k1_source_matches_plain_encoder(emu, k1_rows, cap):
         assert out[i, :m].tobytes() == want[i, :m].tobytes(), f"row {i}"
 
 
-# K2 over 608 steps on K1's payloads, whole or cut short (the random
-# rows run out of input halfway; one row keeps 2 bytes of its payload).
-@pytest.mark.parametrize("cut", [False, True])
+def _flag_rows(n: int) -> list[bytes]:
+    """Rows whose runs of 1 to 6 equal bytes switch the run flag on and
+    off at byte boundaries, and a random row: its payload is as long as
+    the row, so it wraps K2's payload ring of 256 entries n / 256 times."""
+    rng = np.random.default_rng(5)
+    runs = np.repeat(rng.integers(0, 3, n, dtype=np.uint8), rng.integers(1, 7, n))[:n]
+    return [runs.tobytes(), (b"aaab" * n)[:n], rng.integers(0, 256, n, dtype=np.uint8).tobytes()]
+
+
+# K2 on K1's payloads.  False: 608 steps, whole.  True: the random rows
+# run out of input halfway; one row keeps 2 bytes of its payload.
+# "edges": payloads cut to 1, 3, 5, 37 and 40 bytes, so that the stream
+# runs out inside the first four code bytes, at the first bytes, and
+# mid-byte after bytes that had 32 code bytes ahead.  "long": 2,608
+# steps of the run-flag rows and a random row whose payload wraps the
+# ring about ten times.
+@pytest.mark.parametrize("cut", [False, True, "edges", "long"])
 def test_k2_source_matches_plain_decoder(emu, cut):
-    n = 608
-    rows = _rows(n)
+    n = 2608 if cut == "long" else 608
+    rows = _flag_rows(n) if cut == "long" else _rows(n)
     arr, lens = _pad(rows, n)
     pay, pay_lens = _emu_encode(emu, arr, lens, n + n // 8 + 64)
     pays = [pay[i, : pay_lens[i]].tobytes() for i in range(len(rows))]
-    if cut:
+    if cut is True:
         pays[0], pays[1], pays[3] = pays[0][: len(pays[0]) // 2], pays[1][: len(pays[1]) // 2], pays[3][:2]
+    if cut == "edges":
+        for i, m in zip((0, 1, 2, 3, 8), (1, 3, 5, 37, 40)):
+            pays[i] = pays[i][:m]
+    if cut == "long":
+        assert len(pays[2]) > 2500
     parr, plens = _pad(pays, -(-max(map(len, pays)) // 16) * 16)
     want = cm.cm_decode_batch(torch.from_numpy(parr), torch.from_numpy(plens),
                               torch.from_numpy(lens), n).numpy()
@@ -192,7 +218,7 @@ def test_k2_source_matches_plain_decoder(emu, cut):
                       out.ctypes.data, n, len(rows))
     for i in range(len(rows)):
         assert out[i, : lens[i]].tobytes() == want[i, : lens[i]].tobytes(), f"row {i}"
-        if not cut:
+        if cut in (False, "long"):
             assert out[i, : lens[i]].tobytes() == rows[i], f"row {i}"
 
 
@@ -267,18 +293,22 @@ def dec_rows(emu):
 
 # K3b and K3c in launches of 128 steps: the 1-byte and the empty row end
 # in the first launch, the 130-byte row early in the second; K3c yields
-# one piece a launch.
-@pytest.mark.parametrize("rel", [False, True])
+# one piece a launch.  "k3b-97" / "k3c-97": launches of 97 steps, so that
+# each launch resumes its payload at a saved ip anywhere in a ring line.
+@pytest.mark.parametrize("rel", [False, True, "k3b-97", "k3c-97"])
 def test_k3b_k3c_source_match_plain_and_k2(emu, dec_rows, rel):
     lens, parr, plens, k2 = dec_rows
-    n, chunk = k2.shape[1], 128
+    chunk = 97 if isinstance(rel, str) else 128
+    rel = rel in (True, "k3c-97")
+    n = k2.shape[1]
     args = (torch.from_numpy(parr), torch.from_numpy(plens), torch.from_numpy(lens), n, chunk)
     got = _emu_decode_resume(emu, parr, plens, lens, n, chunk, rel)
     if rel:
         want = [(s, p.numpy()) for s, p in cm.cm_decode_stream(*args)]
     else:
         got, want = [(0, got[-1][1])], [(0, cm.cm_decode_resumable(*args).numpy())]
-    assert [s for s, _ in got] == [s for s, _ in want] == ([0, 128, 256] if rel else [0])
+    starts = list(range(0, n, chunk)) if rel else [0]
+    assert [s for s, _ in got] == [s for s, _ in want] == starts
     for (s, g), (_, w) in zip(got, want):
         for i in range(len(lens)):
             m = max(0, min(int(lens[i]) - s, g.shape[1]))
